@@ -1,0 +1,103 @@
+"""Where the time of a PMC MPC solve goes: torch.profiler over closed-loop
+solves of bin/run_mpc's controller.
+
+  python -m lifelike_tpu_torch.bin.profile_mpc --population=4096 --horizon=50 --steps=5
+  python -m lifelike_tpu_torch.bin.profile_mpc --device=cpu --population=128 --horizon=3
+
+Takes run_mpc's flags. After WARMUP closed-loop control steps (solve and
+plant step, as in run_mpc), `--steps` solves from the state reached are
+timed, then `--steps` more run under the profiler; each starts from the
+warm start the one before returned, and the plant is not stepped in
+between. Prints the mean solve wall time without and with the profiler
+(host clock, the card synchronized after each solve), the device time per
+solve summed over the profiler's device events, the device's idle share of
+the unprofiled solve (the profiler slows the host, not the kernels), and
+the operators with the most host and device time; the full tables go to
+--out when it is given.
+"""
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from lifelike_tpu_torch.bin import run_mpc
+from lifelike_tpu_torch.envs import primitive
+
+WARMUP = 2  # control steps before profiling; the first solve builds the kernel
+
+
+def parse_args(argv=None):
+    p = run_mpc.arg_parser(__doc__.split("\n")[0])
+    p.add_argument("--out", default=None, help="file for the full operator tables")
+    return p.parse_args(argv)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def profile_pmc(args, log=print):
+    """Returns {"solve_ms", "profiled_solve_ms", "device_ms", "idle_share",
+    "host_top", "device_top"}; device figures are None on the CPU."""
+    dev, model, clips, cfg, ctrl, gen, env, u = run_mpc.setup_pmc(args)
+
+    def solve(u):
+        _sync(dev)
+        t0 = time.perf_counter()
+        tgt, u, _ = ctrl(gen, env.robot, env.clip_idx, env.t, u)
+        _sync(dev)
+        return tgt, u, time.perf_counter() - t0
+
+    for _ in range(WARMUP):
+        tgt, u, _ = solve(u)
+        env, *_ = primitive.step(model, clips, cfg, env, tgt - env.robot.joint_pos)
+    walls, prof_walls = [], []
+    for _ in range(args.steps):
+        _, u, dt = solve(u)
+        walls.append(dt)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        for _ in range(args.steps):
+            _, u, dt = solve(u)
+            prof_walls.append(dt)
+    solve_ms = 1e3 * sum(walls) / len(walls)
+    profiled_ms = 1e3 * sum(prof_walls) / len(prof_walls)
+    avg = prof.key_averages()
+    device_ms = idle = None
+    if dev.type == "cuda":
+        device_us = sum(e.self_device_time_total for e in avg
+                        if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        device_ms = device_us / 1e3 / args.steps
+        idle = max(0.0, 1.0 - device_ms / solve_ms) if device_us > 0 else None
+    host_top = avg.table(sort_by="self_cpu_time_total", row_limit=12)
+    device_top = (avg.table(sort_by="self_device_time_total", row_limit=12)
+                  if dev.type == "cuda" else "")
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(avg.table(sort_by="self_cpu_time_total", row_limit=-1))
+            if device_top:
+                f.write("\n")
+                f.write(avg.table(sort_by="self_device_time_total", row_limit=-1))
+    log("PMC solve profile: pop %d H %d iterations %d | %d solves | solve %.3f ms, "
+        "%.3f ms under the profiler (host clock, synchronized) | device %s ms/solve | "
+        "device idle share %s" % (
+            args.population, args.horizon, args.iterations, args.steps, solve_ms, profiled_ms,
+            "not measured" if device_ms is None else "%.3f" % device_ms,
+            "not measured" if idle is None else "%.4f" % idle))
+    return {"solve_ms": solve_ms, "profiled_solve_ms": profiled_ms,
+            "device_ms": device_ms, "idle_share": idle,
+            "host_top": host_top, "device_top": device_top}
+
+
+def main(argv=None):
+    out = profile_pmc(parse_args(argv))
+    print(out["host_top"])
+    print(out["device_top"])
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

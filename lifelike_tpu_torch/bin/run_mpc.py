@@ -1,0 +1,137 @@
+"""MPC evaluation CLI: closed-loop PMC mocap-tracking solves.
+
+Port of lifelike_tpu.bin.run_mpc --task=pmc. A receding-horizon MPPI
+controller (solver.mppi_tl; candidates scored by the CUDA rollout kernel on
+the card) tracks a mocap clip on the envs.primitive plant and reports
+per-episode statistics.
+
+  python -m lifelike_tpu_torch.bin.run_mpc --task=pmc --steps=50
+  python -m lifelike_tpu_torch.bin.run_mpc --clip=clip.txt --population=4096 --horizon=50
+  python -m lifelike_tpu_torch.bin.run_mpc --device=cpu --population=128 --horizon=3
+
+--clip takes a reference-format JSON clip file (or directory); the default
+"synthetic" uses motion_lib.make_synthetic_clip, which needs no data.
+"""
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from lifelike_tpu_torch import _device
+from lifelike_tpu_torch.envs import primitive
+from lifelike_tpu_torch.motion import motion_lib
+from lifelike_tpu_torch.physics import batched as B
+from lifelike_tpu_torch.robot.model import build_max_model
+from lifelike_tpu_torch.solver import mppi, mppi_tl
+
+
+def arg_parser(description=__doc__.split("\n")[0]):
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--task", default="pmc", choices=["pmc"],
+                   help="which level's MPC problem to solve")
+    p.add_argument("--clip", default="synthetic",
+                   help="mocap clip file or directory, or 'synthetic'")
+    p.add_argument("--steps", type=int, default=50, help="control steps to run")
+    p.add_argument("--population", type=int, default=512, help="MPPI population")
+    p.add_argument("--horizon", type=int, default=10, help="MPC horizon (control steps)")
+    p.add_argument("--iterations", type=int, default=1, help="MPPI iterations per solve")
+    p.add_argument("--seed", type=int, default=0, help="generator seed")
+    p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    return p
+
+
+def parse_args(argv=None):
+    return arg_parser().parse_args(argv)
+
+
+def _report(name, ep_rewards, ep_lens, t_solve):
+    """Per-episode summary line (lifelike_tpu run_mpc._report)."""
+    return (
+        "%s MPC eval: %d episodes | mean reward/step %.4f | mean ep len %.1f"
+        " | solve p50 %.1f ms" % (
+            name, len(ep_rewards),
+            float(np.sum(ep_rewards) / max(np.sum(ep_lens), 1)),
+            float(np.mean(ep_lens)) if ep_lens else 0.0,
+            1e3 * float(np.percentile(t_solve[1:], 50)) if len(t_solve) > 1 else -1,
+        )
+    )
+
+
+def _clips(path, horizon, device):
+    if path == "synthetic":
+        # long enough that the horizon never runs past the clip end in a run
+        frames = motion_lib.make_synthetic_clip(int(120 * (horizon / 50.0 + 30)))
+        return motion_lib.pack_clips([frames], frame_step=1.0 / 120.0, device=device)
+    return motion_lib.load_clips(path, device=device)
+
+
+def setup_pmc(args):
+    """(device, model, clips, env config, controller, generator, first env
+    state, zero warm start) of the PMC closed loop, float32."""
+    dev = _device.resolve_device(args.device)
+    dtype = torch.float32
+    model = build_max_model()
+    clips = _clips(args.clip, args.horizon, dev)
+    cfg = primitive.PrimitiveEnvConfig()
+    mcfg = mppi.MPPIConfig(horizon=args.horizon, population=args.population,
+                           iterations=args.iterations)
+    c = B.tl_constants(model, dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    env, _ = primitive.reset(model, clips, cfg, gen)
+    ctrl = mppi_tl.make_mpc_controller(model, c, cfg.params, clips, mcfg, device=dev)
+    u = torch.zeros((mcfg.horizon, 4, 3), dtype=dtype, device=dev)
+    return dev, model, clips, cfg, ctrl, gen, env, u
+
+
+def run_pmc(args, log=print):
+    """Closed loop; returns a dict of per-step rewards, episode ends and
+    solve times (seconds; CUDA-event times on the card)."""
+    dev, model, clips, cfg, ctrl, gen, env, u = setup_pmc(args)
+    rewards, ep_rewards, ep_lens, t_solve = [], [], [], []
+    step_rewards, episode_ends = [], []
+    for i in range(args.steps):
+        if dev.type == "cuda":
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            tgt, u, diag = ctrl(gen, env.robot, env.clip_idx, env.t, u)
+            ev1.record()
+            ev1.synchronize()
+            t_solve.append(ev0.elapsed_time(ev1) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            tgt, u, diag = ctrl(gen, env.robot, env.clip_idx, env.t, u)
+            t_solve.append(time.perf_counter() - t0)
+        env, _, r, done, info = primitive.step(model, clips, cfg, env,
+                                               tgt - env.robot.joint_pos)
+        rewards.append(float(r))
+        step_rewards.append(float(r))
+        if bool(done):
+            ep_rewards.append(sum(rewards))
+            ep_lens.append(len(rewards))
+            episode_ends.append(i)
+            log("episode end at step %d: reward_sum=%.2f len=%d (%s)" % (
+                i, ep_rewards[-1], ep_lens[-1],
+                {k: bool(v) for k, v in info.items() if v.dtype == torch.bool}))
+            rewards = []
+            env, _ = primitive.reset(model, clips, cfg, gen)
+            u = torch.zeros_like(u)
+    if rewards:
+        ep_rewards.append(sum(rewards))
+        ep_lens.append(len(rewards))
+    log(_report("PMC", ep_rewards, ep_lens, t_solve))
+    return {"step_rewards": step_rewards, "episode_ends": episode_ends,
+            "ep_rewards": ep_rewards, "ep_lens": ep_lens, "t_solve": t_solve,
+            "device": str(dev)}
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    return {"pmc": run_pmc}[args.task](args)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,94 @@
+"""Carry the JAX package's structures over to the port.
+
+The MPC has no learned weights; its parameters are the robot model, the
+tile-layout constants, the physics parameters, the clip library and the
+states and references that flow between its layers. Each function here
+takes one of those structures as the JAX package holds it — any object with
+the same field names whose leaves are numpy arrays (or array-likes such as
+a jax.Array converted by np.asarray) — and returns the port's structure on a
+given device and dtype. Nothing here imports JAX or the JAX package.
+"""
+import numpy as np
+import torch
+
+from lifelike_tpu_torch import _device
+from lifelike_tpu_torch.envs.primitive import PrimitiveEnvState
+from lifelike_tpu_torch.motion.motion_lib import MotionClips
+from lifelike_tpu_torch.physics.batched import TLConstants, TLState
+from lifelike_tpu_torch.physics.contact import ContactParams
+from lifelike_tpu_torch.physics.dynamics import RobotState
+from lifelike_tpu_torch.physics.engine import PhysicsParams
+from lifelike_tpu_torch.robot.model import MaxModel
+from lifelike_tpu_torch.solver.rollout_tl import RefTraj
+
+
+def _tensor(x, device, dtype=None):
+    a = np.array(x)  # copy: JAX buffers are read-only
+    t = torch.as_tensor(a, device=device)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t
+
+
+def _fields(obj, cls, device, dtype):
+    dev = _device.resolve_device(device)
+    return cls(**{f: _tensor(getattr(obj, f), dev, dtype) for f in cls._fields})
+
+
+def max_model(m) -> MaxModel:
+    """robot.model.MaxModel (numpy in both packages) -> the port's MaxModel."""
+    kw = {}
+    for name in MaxModel.__dataclass_fields__:
+        v = getattr(m, name)
+        kw[name] = float(v) if np.ndim(v) == 0 else np.array(v)
+    return MaxModel(**kw)
+
+
+def tl_constants(c, device="cuda", dtype=None) -> TLConstants:
+    """physics.batched.TLConstants -> port TLConstants (floats stay floats)."""
+    dev = _device.resolve_device(device)
+    kw = {}
+    for f in TLConstants._fields:
+        v = getattr(c, f)
+        kw[f] = float(v) if np.ndim(v) == 0 else _tensor(v, dev, dtype)
+    return TLConstants(**kw)
+
+
+def physics_params(p) -> PhysicsParams:
+    """physics.engine.PhysicsParams -> port PhysicsParams (host scalars)."""
+    cp = p.contact
+    return PhysicsParams(
+        kp=float(p.kp), kd=float(p.kd), max_tau=float(p.max_tau),
+        foot_friction=float(p.foot_friction), dt=float(p.dt), substeps=int(p.substeps),
+        ext_force=np.array(p.ext_force, np.float32),
+        contact=ContactParams(*(float(getattr(cp, f)) for f in ContactParams._fields)),
+        mass_freeze=int(p.mass_freeze),
+    )
+
+
+def motion_clips(mc, device="cuda") -> MotionClips:
+    dev = _device.resolve_device(device)
+    return MotionClips(
+        frames=_tensor(mc.frames, dev), lengths=_tensor(mc.lengths, dev),
+        frame_step=float(mc.frame_step), margin=int(mc.margin),
+    )
+
+
+def ref_traj(r, device="cuda", dtype=None) -> RefTraj:
+    return _fields(r, RefTraj, device, dtype)
+
+
+def tl_state(s, device="cuda", dtype=None) -> TLState:
+    return _fields(s, TLState, device, dtype)
+
+
+def robot_state(s, device="cuda", dtype=None) -> RobotState:
+    return _fields(s, RobotState, device, dtype)
+
+
+def primitive_env_state(e, device="cuda", dtype=None) -> PrimitiveEnvState:
+    """envs.primitive.PrimitiveEnvState (robot, t, clip_idx, histories)."""
+    dev = _device.resolve_device(device)
+    kw = {f: _tensor(getattr(e, f), dev, dtype) for f in PrimitiveEnvState._fields
+          if f != "robot"}
+    return PrimitiveEnvState(robot=robot_state(e.robot, dev, dtype), **kw)

@@ -1,0 +1,296 @@
+"""Fused MPPI rollout on the card: the CUDA counterpart of ops/rollout_pallas.
+
+`rollout_tracking_fused` scores every MPPI candidate of a PMC tracking
+solve: H control steps of the MAX quadruped (csrc/scalar_phys.cuh) from the
+solve's one start state plus the 5-term tracking cost, one CUDA thread per
+candidate (csrc/rollout_tracking.cu).
+On a CUDA tensor it launches that kernel (or raises); on a CPU tensor it runs
+the kernel's plain PyTorch version, solver.rollout_tl.rollout_tracking.
+
+The kernel is compiled at first use from the sources in csrc/ with plain
+nvcc for sm_90a into a shared library with a C ABI, which is loaded with
+ctypes. The build goes to lifelike_tpu_torch/build/ (named by a hash of the
+sources and flags, so an edited source is rebuilt); the ptxas report
+(registers, spills) is kept beside the library.
+"""
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from lifelike_tpu_torch.costs.tracking import TrackingWeights
+from lifelike_tpu_torch.physics import batched as B
+from lifelike_tpu_torch.solver import rollout_tl
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+SOURCES = ("rollout_tracking.cu", "scalar_phys.cuh")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# packed reference row layout (lifelike_tpu/ops/rollout_pallas.py:43-52)
+_OFF_TARGET = 0  # 12: joint targets the controls are deltas on
+_OFF_JP = 12  # 12: reference joint_pos at t+1
+_OFF_JV = 24  # 12: reference joint_vel
+_OFF_FOOT = 36  # 12: reference foot positions (4 legs x 3)
+_OFF_BP = 48  # 3: reference base_pos
+_OFF_BO = 51  # 4: reference base_orn (xyzw)
+_OFF_BLV = 55  # 3
+_OFF_BAV = 58  # 3
+_REF_WIDTH = 64
+
+_STATE_LEN = 37  # TLState leaves pb 3, q 4, vb 3, wb 3, jq 12, jqd 12
+_PARAM_LEN = 20
+
+
+class BuildInfo(NamedTuple):
+    path: str  # the loaded shared library
+    seconds: float  # nvcc wall time of this process's build (0.0 if reused)
+    ptxas: str  # nvcc/ptxas -v report of the build that made `path`
+
+
+_LIB = None
+_BUILD = None
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                           "the rollout kernel")
+    return path
+
+
+def _source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile (if needed) and load the kernel library; idempotent."""
+    global _LIB, _BUILD
+    if _LIB is not None:
+        return _BUILD
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    stem = os.path.join(BUILD_DIR, f"librollout_tracking_{_source_hash()}")
+    so, log = stem + ".so", stem + ".ptxas.txt"
+    seconds = 0.0
+    if not os.path.exists(so):
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, "rollout_tracking.cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        with open(log, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    with open(log) as f:
+        ptxas = f.read()
+    lib = ctypes.CDLL(so)
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name in ("lifelike_rollout_tracking_f32", "lifelike_rollout_tracking_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i64, ptr, i32, ptr]
+        fn.restype = i32
+    for name in ("lifelike_rollout_attrs_f32", "lifelike_rollout_attrs_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(i32)] * 4 + [i32]
+        fn.restype = i32
+    for name in ("lifelike_rollout_block_size", "lifelike_rollout_param_len",
+                 "lifelike_rollout_model_len_f32", "lifelike_rollout_model_len_f64"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    if lib.lifelike_rollout_param_len() != _PARAM_LEN:
+        raise RuntimeError("kernel parameter layout differs from ops/rollout_cuda.py")
+    _LIB, _BUILD = lib, BuildInfo(path=so, seconds=seconds, ptxas=ptxas)
+    return _BUILD
+
+
+def ptxas_summary(text):
+    """{kernel symbol: {registers, spill_stores, spill_loads, stack}} from a
+    ptxas -v report."""
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            out.setdefault(current, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current:
+            out[current].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+            out.setdefault(current, {})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            out[current]["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "rollout_tracking_kernel" in k}
+
+
+def kernel_attributes(dtype=torch.float32, horizon=50):
+    """Registers, local (spill) bytes per thread, block size and resident
+    blocks per SM of the compiled kernel, from the CUDA runtime."""
+    build()
+    fn = (_LIB.lifelike_rollout_attrs_f64 if dtype == torch.float64
+          else _LIB.lifelike_rollout_attrs_f32)
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    err = fn(*(ctypes.byref(v) for v in vals), int(horizon))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes/occupancy failed: error {err}")
+    regs, local, max_threads, blocks = (v.value for v in vals)
+    return {"registers": regs, "local_bytes": local, "max_threads": max_threads,
+            "block": _LIB.lifelike_rollout_block_size(), "blocks_per_sm": blocks}
+
+
+def pack_reference(ref: rollout_tl.RefTraj) -> torch.Tensor:
+    """RefTraj (leaves (H, ...) with trailing (1, 1)) -> (H, 64) scalars."""
+
+    def flat(x):
+        return x.reshape(x.shape[0], -1)
+
+    row = torch.cat(
+        [flat(ref.target_joint), flat(ref.joint_pos), flat(ref.joint_vel),
+         flat(ref.foot_pos), flat(ref.base_pos), flat(ref.base_orn),
+         flat(ref.base_lin_vel), flat(ref.base_ang_vel)],
+        dim=1,
+    )
+    pad = _REF_WIDTH - row.shape[1]
+    return torch.cat([row, row.new_zeros((row.shape[0], pad))], dim=1)
+
+
+def pack_model(c: B.TLConstants) -> torch.Tensor:
+    """TLConstants -> the flat ModelConst<T> vector of csrc/scalar_phys.cuh."""
+    ref = c.joint_offset
+    arrays = [c.joint_offset, c.axis, c.axis_K, c.axis_KK, c.link_mass, c.link_com,
+              c.link_inertia, c.base_com, c.base_inertia, c.foot_offset,
+              c.wheel_offset, c.damping, c.friction, c.lower, c.upper, c.link_mass_rc]
+    scalars = torch.tensor([c.base_mass, c.foot_radius, c.wheel_radius, c.total_mass],
+                           dtype=torch.float64).to(dtype=ref.dtype, device=ref.device)
+    return torch.cat([a.reshape(-1) for a in arrays] + [scalars])
+
+
+def host_params(params, weights: TrackingWeights, horizon):
+    """Runtime scalars of the launch as float64 (weights normalized there)."""
+    w = np.asarray(tuple(weights), np.float64)
+    w = w / w.sum()
+    cp = params.contact
+    ext = np.asarray(params.ext_force, np.float64).reshape(3)
+    hp = np.array(
+        [params.kp, params.kd, params.max_tau, params.foot_friction, params.dt,
+         cp.kn, cp.dn, cp.v_slip, cp.fric_visc_cap, *ext, *w,
+         params.substeps, max(int(params.mass_freeze), 1), horizon],
+        np.float64,
+    )
+    return hp
+
+
+def _check(name, x, device, dtype):
+    if x.device != device or x.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} on {device}, got {x.dtype} on {x.device}")
+
+
+def _check_state(state: B.TLState):
+    for name, x in zip(B.TLState._fields, state):
+        if tuple(x.shape[-2:]) != (1, 1):
+            raise ValueError(f"state.{name}: batch {tuple(x.shape[-2:])}, expected the "
+                             "solve's one start state, batch (1, 1)")
+
+
+# The MPPI controller passes the same TLConstants to every solve: the packed
+# vector of the last one is kept, so a solve sends no model constants.
+_PACKED_MODEL = (None, None)
+
+
+def _packed_model(c: B.TLConstants) -> torch.Tensor:
+    global _PACKED_MODEL
+    if _PACKED_MODEL[0] is not c:
+        _PACKED_MODEL = (c, pack_model(c).contiguous())
+    return _PACKED_MODEL[1]
+
+
+def _launch(c, params, state: B.TLState, controls, ref, weights):
+    dev, dtype = controls.device, controls.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"controls: unsupported dtype {dtype}")
+    if controls.dim() != 5 or tuple(controls.shape[1:3]) != (4, 3):
+        raise ValueError(f"controls: expected (H, 4, 3, Bs, L), got {tuple(controls.shape)}")
+    if not controls.is_contiguous():
+        raise ValueError("controls must be contiguous")
+    H, Bs, L = controls.shape[0], controls.shape[3], controls.shape[4]
+    for name, x in zip(rollout_tl.RefTraj._fields, ref):
+        if x.device != dev:
+            raise ValueError(f"ref.{name}: on {x.device}, controls on {dev}")
+        if x.shape[0] != H:
+            raise ValueError(f"ref.{name}: horizon {x.shape[0]} != controls' {H}")
+    for name, x in zip(B.TLState._fields, state):
+        _check(f"state.{name}", x, dev, dtype)
+    _check("c.joint_offset", c.joint_offset, dev, dtype)
+
+    st = torch.cat([x.reshape(-1) for x in state])
+    if st.numel() != _STATE_LEN:
+        raise ValueError(f"state: {st.numel()} values, expected {_STATE_LEN}")
+    # the clip's float32 finite differences may sit beside float64 poses in
+    # `ref`; the packed rows take the controls' dtype
+    ref_packed = pack_reference(ref).to(dtype).contiguous()
+    model = _packed_model(c)
+    hp = host_params(params, weights, H)
+    cost = torch.empty((Bs, L), dtype=dtype, device=dev)
+
+    build()
+    fn = (_LIB.lifelike_rollout_tracking_f64 if dtype == torch.float64
+          else _LIB.lifelike_rollout_tracking_f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ref_packed.data_ptr(), model.data_ptr(), model.numel(), st.data_ptr(),
+                 controls.data_ptr(), cost.data_ptr(), Bs * L, hp.ctypes.data, hp.size,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"rollout_tracking kernel launch failed: error {err}")
+    rollout_tracking_fused.launches += 1
+    return cost
+
+
+def rollout_tracking_fused(c: B.TLConstants, params, state: B.TLState, controls,
+                           ref: rollout_tl.RefTraj,
+                           weights: TrackingWeights = TrackingWeights()):
+    """Total tracking cost (Bs, L) of the candidates `controls`
+    (H, 4, 3, Bs, L) — joint-target deltas on ref.target_joint — all rolled
+    from the one start state `state` (TLState with batch (1, 1)).
+
+    CUDA tensors: the hand-written kernel (counted in
+    `rollout_tracking_fused.launches`). CPU tensors: the plain version
+    rollout_tl.rollout_tracking."""
+    _check_state(state)
+    if controls.is_cuda:
+        return _launch(c, params, state, controls, ref, weights)
+    if controls.device.type != "cpu":
+        raise ValueError(f"unsupported device {controls.device}")
+    return rollout_tl.rollout_tracking(c, params, state, controls, ref, weights)[0]
+
+
+rollout_tracking_fused.launches = 0
