@@ -1,7 +1,8 @@
-"""Where the time of a PMC MPC solve goes: torch.profiler over closed-loop
-solves of bin/run_mpc's controller.
+"""Where the time of an MPC solve goes: torch.profiler over closed-loop
+solves of bin/run_mpc's controller (--task=pmc or --task=epmc).
 
   python -m lifelike_tpu_torch.bin.profile_mpc --population=4096 --horizon=50 --steps=5
+  python -m lifelike_tpu_torch.bin.profile_mpc --task=epmc --population=4096 --horizon=50
   python -m lifelike_tpu_torch.bin.profile_mpc --device=cpu --population=128 --horizon=3
 
 Takes run_mpc's flags. After WARMUP closed-loop control steps (solve and
@@ -23,7 +24,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from lifelike_tpu_torch.bin import run_mpc
-from lifelike_tpu_torch.envs import primitive
+from lifelike_tpu_torch.envs import playground, primitive
 
 WARMUP = 2  # control steps before profiling; the first solve builds the kernel
 
@@ -39,21 +40,50 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def profile_pmc(args, log=print):
+class _Loop:
+    """The closed loop of run_mpc's --task: `solve(u)` -> (action, u') from
+    the current env state; `advance(action)` steps the plant."""
+
+    def __init__(self, args):
+        if args.task == "epmc":
+            self.dev, self.model, self.cfg, self.ctrl, self.gen, self.env, self.u = \
+                run_mpc.setup_epmc(args)
+        else:
+            (self.dev, self.model, self.clips, self.cfg, self.ctrl, self.gen, self.env,
+             self.u) = run_mpc.setup_pmc(args)
+        self.task = args.task
+
+    def solve(self, u):
+        e = self.env
+        if self.task == "epmc":
+            tgt, u, _ = self.ctrl(self.gen, e.robot, e.scene, e.target_pos, e.target_spd, u)
+        else:
+            tgt, u, _ = self.ctrl(self.gen, e.robot, e.clip_idx, e.t, u)
+        return tgt - e.robot.joint_pos, u
+
+    def advance(self, action):
+        if self.task == "epmc":
+            self.env = playground.step(self.model, self.cfg, self.env, action, self.gen)[0]
+        else:
+            self.env = primitive.step(self.model, self.clips, self.cfg, self.env, action)[0]
+
+
+def profile_solve(args, log=print):
     """Returns {"solve_ms", "profiled_solve_ms", "device_ms", "idle_share",
     "host_top", "device_top"}; device figures are None on the CPU."""
-    dev, model, clips, cfg, ctrl, gen, env, u = run_mpc.setup_pmc(args)
+    loop = _Loop(args)
+    dev, u = loop.dev, loop.u
 
     def solve(u):
         _sync(dev)
         t0 = time.perf_counter()
-        tgt, u, _ = ctrl(gen, env.robot, env.clip_idx, env.t, u)
+        action, u = loop.solve(u)
         _sync(dev)
-        return tgt, u, time.perf_counter() - t0
+        return action, u, time.perf_counter() - t0
 
     for _ in range(WARMUP):
-        tgt, u, _ = solve(u)
-        env, *_ = primitive.step(model, clips, cfg, env, tgt - env.robot.joint_pos)
+        action, u, _ = solve(u)
+        loop.advance(action)
     walls, prof_walls = [], []
     for _ in range(args.steps):
         _, u, dt = solve(u)
@@ -81,10 +111,11 @@ def profile_pmc(args, log=print):
             if device_top:
                 f.write("\n")
                 f.write(avg.table(sort_by="self_device_time_total", row_limit=-1))
-    log("PMC solve profile: pop %d H %d iterations %d | %d solves | solve %.3f ms, "
+    log("%s solve profile: pop %d H %d iterations %d | %d solves | solve %.3f ms, "
         "%.3f ms under the profiler (host clock, synchronized) | device %s ms/solve | "
         "device idle share %s" % (
-            args.population, args.horizon, args.iterations, args.steps, solve_ms, profiled_ms,
+            args.task.upper(), args.population, args.horizon, args.iterations, args.steps,
+            solve_ms, profiled_ms,
             "not measured" if device_ms is None else "%.3f" % device_ms,
             "not measured" if idle is None else "%.4f" % idle))
     return {"solve_ms": solve_ms, "profiled_solve_ms": profiled_ms,
@@ -93,7 +124,7 @@ def profile_pmc(args, log=print):
 
 
 def main(argv=None):
-    out = profile_pmc(parse_args(argv))
+    out = profile_solve(parse_args(argv))
     print(out["host_top"])
     print(out["device_top"])
     return out

@@ -1,12 +1,19 @@
-"""MPC evaluation CLI: closed-loop PMC mocap-tracking solves.
+"""MPC evaluation CLI: closed-loop PMC tracking and EPMC traversal solves.
 
-Port of lifelike_tpu.bin.run_mpc --task=pmc. A receding-horizon MPPI
-controller (solver.mppi_tl; candidates scored by the CUDA rollout kernel on
-the card) tracks a mocap clip on the envs.primitive plant and reports
-per-episode statistics.
+Port of lifelike_tpu.bin.run_mpc --task=pmc / --task=epmc. A
+receding-horizon MPPI controller solves the task online and the CLI reports
+per-episode statistics:
+
+  * pmc: track a mocap clip on the envs.primitive plant (solver.mppi_tl;
+    candidates scored by the CUDA tracking rollout kernel on the card);
+  * epmc: traverse a randomized playground course (--element_id 0
+    joystick, 1 hurdles, 2 holes, 3 cubes) on the envs.playground plant
+    with box contact (solver.mpc_tasks; candidates scored by the CUDA
+    traversal rollout kernel on the card).
 
   python -m lifelike_tpu_torch.bin.run_mpc --task=pmc --steps=50
   python -m lifelike_tpu_torch.bin.run_mpc --clip=clip.txt --population=4096 --horizon=50
+  python -m lifelike_tpu_torch.bin.run_mpc --task=epmc --element_id=1
   python -m lifelike_tpu_torch.bin.run_mpc --device=cpu --population=128 --horizon=3
 
 --clip takes a reference-format JSON clip file (or directory); the default
@@ -20,19 +27,22 @@ import numpy as np
 import torch
 
 from lifelike_tpu_torch import _device
-from lifelike_tpu_torch.envs import primitive
+from lifelike_tpu_torch.envs import playground, primitive
 from lifelike_tpu_torch.motion import motion_lib
 from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.robot.model import build_max_model
-from lifelike_tpu_torch.solver import mppi, mppi_tl
+from lifelike_tpu_torch.scene import playground_gen
+from lifelike_tpu_torch.solver import mpc_tasks, mppi, mppi_tl
 
 
 def arg_parser(description=__doc__.split("\n")[0]):
     p = argparse.ArgumentParser(description=description)
-    p.add_argument("--task", default="pmc", choices=["pmc"],
+    p.add_argument("--task", default="pmc", choices=["pmc", "epmc"],
                    help="which level's MPC problem to solve")
     p.add_argument("--clip", default="synthetic",
-                   help="mocap clip file or directory, or 'synthetic'")
+                   help="mocap clip file or directory, or 'synthetic' (pmc)")
+    p.add_argument("--element_id", type=int, default=1,
+                   help="playground element (epmc): 0 joystick, 1 hurdles, 2 holes, 3 cubes")
     p.add_argument("--steps", type=int, default=50, help="control steps to run")
     p.add_argument("--population", type=int, default=512, help="MPPI population")
     p.add_argument("--horizon", type=int, default=10, help="MPC horizon (control steps)")
@@ -86,6 +96,21 @@ def setup_pmc(args):
     return dev, model, clips, cfg, ctrl, gen, env, u
 
 
+def _timed(dev, fn):
+    """(fn(), seconds): CUDA-event time on the card, host clock on the CPU."""
+    if dev.type == "cuda":
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = fn()
+        ev1.record()
+        ev1.synchronize()
+        return out, ev0.elapsed_time(ev1) / 1e3
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
 def run_pmc(args, log=print):
     """Closed loop; returns a dict of per-step rewards, episode ends and
     solve times (seconds; CUDA-event times on the card)."""
@@ -93,18 +118,8 @@ def run_pmc(args, log=print):
     rewards, ep_rewards, ep_lens, t_solve = [], [], [], []
     step_rewards, episode_ends = [], []
     for i in range(args.steps):
-        if dev.type == "cuda":
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            tgt, u, diag = ctrl(gen, env.robot, env.clip_idx, env.t, u)
-            ev1.record()
-            ev1.synchronize()
-            t_solve.append(ev0.elapsed_time(ev1) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            tgt, u, diag = ctrl(gen, env.robot, env.clip_idx, env.t, u)
-            t_solve.append(time.perf_counter() - t0)
+        (tgt, u, diag), dt = _timed(dev, lambda: ctrl(gen, env.robot, env.clip_idx, env.t, u))
+        t_solve.append(dt)
         env, _, r, done, info = primitive.step(model, clips, cfg, env,
                                                tgt - env.robot.joint_pos)
         rewards.append(float(r))
@@ -128,9 +143,66 @@ def run_pmc(args, log=print):
             "device": str(dev)}
 
 
+def setup_epmc(args):
+    """(device, model, env config, controller, generator, first env state,
+    zero warm start) of the EPMC closed loop, float32: the playground
+    element --element_id, the default plant, MPPI at sigma 0.15."""
+    dev = _device.resolve_device(args.device)
+    dtype = torch.float32
+    model = build_max_model()
+    cfg = playground.PlaygroundConfig(
+        scene=playground_gen.PlaygroundConfig(element_id=args.element_id))
+    mcfg = mppi.MPPIConfig(horizon=args.horizon, population=args.population,
+                           iterations=args.iterations, sigma=0.15)
+    c = B.tl_constants(model, dtype=dtype, device=dev)
+    ctrl = mpc_tasks.make_traversal_controller(model, c, cfg.params, mcfg,
+                                               reward_type=cfg.reward_type,
+                                               max_steps=cfg.max_steps, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    s, _ = playground.reset(model, cfg, gen, dtype=dtype)
+    u = torch.zeros((mcfg.horizon, 4, 3), dtype=dtype, device=dev)
+    return dev, model, cfg, ctrl, gen, s, u
+
+
+def run_epmc(args, log=print):
+    """Closed loop on the playground; returns a dict of per-step rewards,
+    fall / reached flags, episode ends and solve times (seconds; CUDA-event
+    times on the card)."""
+    dev, model, cfg, ctrl, gen, s, u = setup_epmc(args)
+    rewards, ep_rewards, ep_lens, t_solve = [], [], [], []
+    step_rewards, falls, reached, episode_ends = [], [], [], []
+    for i in range(args.steps):
+        (tgt, u, diag), dt = _timed(
+            dev, lambda: ctrl(gen, s.robot, s.scene, s.target_pos, s.target_spd, u))
+        t_solve.append(dt)
+        s, _, r, done, info = playground.step(model, cfg, s, tgt - s.robot.joint_pos, gen)
+        rewards.append(float(r))
+        step_rewards.append(float(r))
+        falls.append(bool(info["fall"]))
+        reached.append(bool(info["reached"]))
+        if bool(done):
+            ep_rewards.append(sum(rewards))
+            ep_lens.append(len(rewards))
+            episode_ends.append(i)
+            log("episode end at step %d: reward_sum=%.4f len=%d fall=%s reached=%s "
+                "ave_spd=%.2f" % (i, ep_rewards[-1], ep_lens[-1], falls[-1], reached[-1],
+                                  float(info["ave_spd"])))
+            rewards = []
+            s, _ = playground.reset(model, cfg, gen, dtype=s.robot.base_pos.dtype)
+            u = torch.zeros_like(u)
+    if rewards:
+        ep_rewards.append(sum(rewards))
+        ep_lens.append(len(rewards))
+    log(_report("EPMC", ep_rewards, ep_lens, t_solve))
+    return {"step_rewards": step_rewards, "falls": falls, "reached": reached,
+            "episode_ends": episode_ends, "ep_rewards": ep_rewards, "ep_lens": ep_lens,
+            "t_solve": t_solve, "device": str(dev)}
+
+
 def main(argv=None):
     args = parse_args(argv)
-    return {"pmc": run_pmc}[args.task](args)
+    return {"pmc": run_pmc, "epmc": run_epmc}[args.task](args)
 
 
 if __name__ == "__main__":

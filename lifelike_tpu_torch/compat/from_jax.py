@@ -12,13 +12,16 @@ import numpy as np
 import torch
 
 from lifelike_tpu_torch import _device
+from lifelike_tpu_torch.envs.playground import PlaygroundState
 from lifelike_tpu_torch.envs.primitive import PrimitiveEnvState
+from lifelike_tpu_torch.envs.randomizer import PushState
 from lifelike_tpu_torch.motion.motion_lib import MotionClips
 from lifelike_tpu_torch.physics.batched import TLConstants, TLState
 from lifelike_tpu_torch.physics.contact import ContactParams
 from lifelike_tpu_torch.physics.dynamics import RobotState
 from lifelike_tpu_torch.physics.engine import PhysicsParams
 from lifelike_tpu_torch.robot.model import MaxModel
+from lifelike_tpu_torch.scene.boxes import BoxScene
 from lifelike_tpu_torch.solver.rollout_tl import RefTraj
 
 
@@ -92,3 +95,20 @@ def primitive_env_state(e, device="cuda", dtype=None) -> PrimitiveEnvState:
     kw = {f: _tensor(getattr(e, f), dev, dtype) for f in PrimitiveEnvState._fields
           if f != "robot"}
     return PrimitiveEnvState(robot=robot_state(e.robot, dev, dtype), **kw)
+
+
+def box_scene(b, device="cuda", dtype=None) -> BoxScene:
+    """scene.boxes.BoxScene (center, half, active mask, target_pos)."""
+    return _fields(b, BoxScene, device, dtype)
+
+
+def playground_state(e, device="cuda", dtype=None) -> PlaygroundState:
+    """envs.playground.PlaygroundState (robot, scene, push state, episode
+    counters and histories); integer and bool leaves keep their types."""
+    dev = _device.resolve_device(device)
+    nested = {"robot": robot_state(e.robot, dev, dtype),
+              "scene": box_scene(e.scene, dev, dtype),
+              "push": _fields(e.push, PushState, dev, dtype)}
+    kw = {f: _tensor(getattr(e, f), dev, dtype) for f in PlaygroundState._fields
+          if f not in nested}
+    return PlaygroundState(**nested, **kw)

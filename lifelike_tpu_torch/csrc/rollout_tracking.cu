@@ -48,11 +48,6 @@ constexpr int kOffBLV = 55;
 constexpr int kOffBAV = 58;
 constexpr int kParamLen = 20;  // host double parameter vector, see params_from_host
 
-template <typename T>
-__host__ __device__ constexpr int model_len() {
-  return static_cast<int>(sizeof(ModelConst<T>) / sizeof(T));
-}
-
 // rollout_tl.tracking_cost_step for one candidate; r = packed reference row
 template <typename T>
 __device__ T tracking_cost(const ModelConst<T>& M, const Params<T>& P, const State<T>& s,

@@ -1,16 +1,17 @@
 // Scalar MAX quadruped physics for one MPPI candidate per thread (K0).
 //
 // Replaces lifelike_tpu/ops/scalar_phys.py (control_step, substep,
-// freeze_mass, leg_fk, leg_bias, plane_contact_force, _chol6,
-// _quat_integrate): the device-function library that the rollout kernel
-// (rollout_tracking.cu) inlines. The semantics are those of the plain
-// PyTorch twins lifelike_tpu_torch/physics/engine_tl.py and batched.py:
-// one 500 Hz substep = leg FK, PD + passive + joint-limit torques,
-// sphere-plane contact of the feet and the wheels, RNEA bias forces, the
-// leg-structured Schur solve (four 3x3 leg blocks + a 6x6 base Cholesky)
-// against mass factors refactored every `mass_freeze` substeps (counted
-// from the start of each control step), then semi-implicit Euler with
-// quaternion integration.
+// freeze_mass, leg_fk, leg_bias, plane_contact_force, box_forces, _chol6,
+// _quat_integrate): the device-function library that the rollout kernels
+// (rollout_tracking.cu, rollout_traversal.cu) inline. The semantics are
+// those of the plain PyTorch twins lifelike_tpu_torch/physics/engine_tl.py
+// and batched.py: one 500 Hz substep = leg FK, PD + passive + joint-limit
+// torques, sphere-plane contact of the feet and the wheels (and, with a box
+// table, the box SDF contact of the feet, the wheels and the six-sphere
+// trunk proxy), RNEA bias forces, the leg-structured Schur solve (four 3x3
+// leg blocks + a 6x6 base Cholesky) against mass factors refactored every
+// `mass_freeze` substeps (counted from the start of each control step),
+// then semi-implicit Euler with quaternion integration.
 //
 // Unlike the TPU library, model constants are not folded into the
 // instruction stream: they arrive as a ModelConst<T> staged in shared
@@ -59,6 +60,11 @@ struct ModelConst {
   T wheel_radius;
   T total_mass;
 };
+
+template <typename T>
+__host__ __device__ constexpr int model_len() {
+  return static_cast<int>(sizeof(ModelConst<T>) / sizeof(T));
+}
 
 // Runtime PhysicsParams scalars + normalized tracking weights (kernel arg).
 template <typename T>
@@ -425,6 +431,99 @@ __device__ __forceinline__ void plane_contact(const T* p, const T* v, T radius, 
   f[2] = fn;
 }
 
+// One sphere against a table of n_boxes boxes, rows of kBoxWidth values
+// (cx cy cz hx hy hz active pad; ops/traversal_cuda.py pack_boxes):
+// engine_tl.sphere_boxes_force. Inside a box the pushout normal is averaged
+// over every face tied for the least penetration (face = (q >= max q) /
+// count), which is what edge and corner contacts with hurdles hit. The box
+// loop stays rolled over the (shared-memory) table; the summed box force is
+// added to f.
+constexpr int kBoxWidth = 8;
+
+template <typename T>
+__device__ __forceinline__ void box_forces(const T* p, const T* v, T radius, const T* boxes,
+                                           int n_boxes, const Params<T>& P, T* f) {
+  T acc[3] = {T(0), T(0), T(0)};
+#pragma unroll 1
+  for (int b = 0; b < n_boxes; ++b) {
+    const T* bx = boxes + b * kBoxWidth;
+    T r[3], q[3], o[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      r[i] = p[i] - bx[i];
+      q[i] = fabs_(r[i]) - bx[3 + i];
+      o[i] = at_least(q[i], T(0));
+    }
+    const T d_out = fsqrt((o[0] * o[0] + o[1] * o[1]) + o[2] * o[2] + T(1e-9));
+    const T d_in = at_least(at_least(q[0], q[1]), q[2]);
+    const bool inside = d_in < T(0);
+    const T dist = inside ? d_in : d_out;
+    T face[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) face[i] = q[i] >= d_in ? T(1) : T(0);
+    const T count = at_least((face[0] + face[1]) + face[2], T(1));
+    T n[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const T sign = r[i] >= T(0) ? T(1) : T(-1);
+      n[i] = inside ? sign * (face[i] / count) : (sign * o[i]) / d_out;
+    }
+    const T pen = at_least(radius - dist, T(0));
+    const T in_c = pen > T(0) ? T(1) : T(0);
+    const T vn = dot3(v, n);
+    T fn = P.kn * pen + P.dn * at_least(-vn, T(0)) * in_c;
+    fn = at_least(fn, T(0)) * in_c;
+    T vt[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) vt[i] = v[i] - vn * n[i];
+    const T vt2 = dot3(vt, vt);
+    const T coef = at_most(P.mu * fn / fsqrt(vt2 + T(1e-12) + P.v_slip2), P.fric_visc_cap);
+    const T act = bx[6];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) acc[i] += (fn * n[i] - coef * vt[i]) * act;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) f[i] += acc[i];
+}
+
+// Trunk proxy (engine._TRUNK_OFFSETS, float32 values; radius 0.07) against
+// the boxes: six spheres on a 3x2 grid in the body x/y plane. The wrench is
+// taken about the BASE position (moment arm = the rotated offset, not
+// p - origin), as engine_tl.substep does; added to tau_b.
+template <typename T>
+__device__ __forceinline__ void trunk_box_wrench(const T Rb[3][3], const State<T>& s,
+                                                 const T* boxes, int n_boxes, const Params<T>& P,
+                                                 T* tau_b) {
+  T torque[3] = {T(0), T(0), T(0)}, force[3] = {T(0), T(0), T(0)};
+#pragma unroll 1
+  for (int sp = 0; sp < 6; ++sp) {
+    const T off[3] = {T(sp < 2 ? -0.12f : (sp < 4 ? 0.0f : 0.12f)), T((sp & 1) ? 0.05f : -0.05f),
+                      T(0)};
+    T ow[3], wxo[3], p[3], v[3];
+    matvec3(Rb, off, ow);
+    cross3(s.wb, ow, wxo);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      p[i] = s.pb[i] + ow[i];
+      v[i] = s.vb[i] + wxo[i];
+    }
+    T f[3] = {T(0), T(0), T(0)};
+    box_forces(p, v, T(0.07), boxes, n_boxes, P, f);
+    T nm[3];
+    cross3(ow, f, nm);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      torque[i] += nm[i];
+      force[i] += f[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    tau_b[i] += torque[i];
+    tau_b[3 + i] += force[i];
+  }
+}
+
 // ---------------------------------------------------------- mass factors
 
 // Leg terms (S, h, Io), F, Minv, FtMinv about origin O; accumulates the
@@ -539,9 +638,12 @@ __device__ __forceinline__ void finish_factor(const ModelConst<T>& M, const T* h
 
 // One 500 Hz substep. refactor: rebuild the mass factors about the current
 // base position first (substep i % mass_freeze == 0 of a control step).
-template <typename T>
+// kBoxes: contact also against the n_boxes rows of `boxes` (feet, wheels
+// and the trunk proxy); without it the code is the plane-only substep.
+template <typename T, bool kBoxes = false>
 __device__ void substep(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
-                        const T target[4][3], Frozen<T>& fr, bool refactor) {
+                        const T target[4][3], Frozen<T>& fr, bool refactor,
+                        const T* boxes = nullptr, int n_boxes = 0) {
   T Rb[3][3];
   quat_to_mat(s.q, Rb);
 
@@ -591,6 +693,7 @@ __device__ void substep(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
     // foot (acts through all three joints) and wheel (joints 1, 2) contact
     T f[3], dp[3], Fsp[6];
     plane_contact(k.pf, k.vf, M.foot_radius, P, f);
+    if (kBoxes) box_forces(k.pf, k.vf, M.foot_radius, boxes, n_boxes, P, f);
 #pragma unroll
     for (int i = 0; i < 3; ++i) dp[i] = k.pf[i] - O[i];
     cross3(dp, f, Fsp);
@@ -602,6 +705,7 @@ __device__ void substep(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
     for (int j = 0; j < 3; ++j) tau_j[leg][j] += dot6(L.S[j], Fsp);
 
     plane_contact(k.pw, k.vw, M.wheel_radius, P, f);
+    if (kBoxes) box_forces(k.pw, k.vw, M.wheel_radius, boxes, n_boxes, P, f);
 #pragma unroll
     for (int i = 0; i < 3; ++i) dp[i] = k.pw[i] - O[i];
     cross3(dp, f, Fsp);
@@ -653,6 +757,8 @@ __device__ void substep(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
 #pragma unroll
     for (int i = 0; i < 6; ++i) bias_b[i] += facc[i];
   }
+
+  if (kBoxes) trunk_box_wrench(Rb, s, boxes, n_boxes, P, tau_b);
 
   T hb[3], Iob[6];
   base_terms(M, Rb, s.pb, O, hb, Iob);
@@ -727,12 +833,14 @@ __device__ void substep(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
 
 // One 50 Hz control step: `substeps` substeps with a held target; mass
 // factors rebuilt at i % mass_freeze == 0 from the start of the step.
-template <typename T>
+template <typename T, bool kBoxes = false>
 __device__ void control_step(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
-                             const T target[4][3], Frozen<T>& fr) {
+                             const T target[4][3], Frozen<T>& fr, const T* boxes = nullptr,
+                             int n_boxes = 0) {
   const int freeze = P.mass_freeze > 1 ? P.mass_freeze : 1;
 #pragma unroll 1
-  for (int i = 0; i < P.substeps; ++i) substep(M, P, s, target, fr, (i % freeze) == 0);
+  for (int i = 0; i < P.substeps; ++i)
+    substep<T, kBoxes>(M, P, s, target, fr, (i % freeze) == 0, boxes, n_boxes);
 }
 
 }  // namespace lifelike

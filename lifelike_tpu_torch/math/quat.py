@@ -116,3 +116,16 @@ def diff_rotvec(q_to, q_from):
     """Rotation vector of q_to ∘ q_from^{-1} (world-frame relative rotation)."""
     return to_rotvec(mul(q_to, inv(q_from)))
 
+
+
+def yaw(q):
+    """Heading yaw of the body x-axis projected to the ground plane."""
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=q.dtype, device=q.device)
+    fwd = rotate(q, x_axis)
+    return torch.atan2(fwd[..., 1], fwd[..., 0])
+
+
+def from_yaw(yaw_angle):
+    half = 0.5 * yaw_angle
+    zeros = torch.zeros_like(half)
+    return torch.stack([zeros, zeros, torch.sin(half), torch.cos(half)], dim=-1)

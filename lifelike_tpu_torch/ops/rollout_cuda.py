@@ -7,36 +7,21 @@ candidate (csrc/rollout_tracking.cu).
 On a CUDA tensor it launches that kernel (or raises); on a CPU tensor it runs
 the kernel's plain PyTorch version, solver.rollout_tl.rollout_tracking.
 
-The kernel is compiled at first use from the sources in csrc/ with plain
-nvcc for sm_90a into a shared library with a C ABI, which is loaded with
-ctypes. The build goes to lifelike_tpu_torch/build/ (named by a hash of the
-sources and flags, so an edited source is rebuilt); the ptxas report
-(registers, spills) is kept beside the library.
+The kernel is compiled at first use from the sources in csrc/ by
+ops.cuda_build (plain nvcc for sm_90a, a shared library with a C ABI loaded
+with ctypes, under lifelike_tpu_torch/build/ with its ptxas report).
 """
 import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
-import time
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from lifelike_tpu_torch.costs.tracking import TrackingWeights
+from lifelike_tpu_torch.ops import cuda_build
 from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.solver import rollout_tl
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("rollout_tracking.cu", "scalar_phys.cuh")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+KERNEL = cuda_build.Kernel("rollout_tracking.cu", ("scalar_phys.cuh",))
 
 # packed reference row layout (lifelike_tpu/ops/rollout_pallas.py:43-52)
 _OFF_TARGET = 0  # 12: joint targets the controls are deltas on
@@ -53,59 +38,17 @@ _STATE_LEN = 37  # TLState leaves pb 3, q 4, vb 3, wb 3, jq 12, jqd 12
 _PARAM_LEN = 20
 
 
-class BuildInfo(NamedTuple):
-    path: str  # the loaded shared library
-    seconds: float  # nvcc wall time of this process's build (0.0 if reused)
-    ptxas: str  # nvcc/ptxas -v report of the build that made `path`
-
-
 _LIB = None
 _BUILD = None
 
 
-def _nvcc():
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                           "the rollout kernel")
-    return path
-
-
-def _source_hash():
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
-            h.update(f.read())
-    return h.hexdigest()[:16]
-
-
-def build() -> BuildInfo:
+def build() -> cuda_build.BuildInfo:
     """Compile (if needed) and load the kernel library; idempotent."""
     global _LIB, _BUILD
     if _LIB is not None:
         return _BUILD
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    stem = os.path.join(BUILD_DIR, f"librollout_tracking_{_source_hash()}")
-    so, log = stem + ".so", stem + ".ptxas.txt"
-    seconds = 0.0
-    if not os.path.exists(so):
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, "rollout_tracking.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        with open(log, "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    with open(log) as f:
-        ptxas = f.read()
-    lib = ctypes.CDLL(so)
+    info = cuda_build.build(KERNEL)
+    lib = ctypes.CDLL(info.path)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name in ("lifelike_rollout_tracking_f32", "lifelike_rollout_tracking_f64"):
         fn = getattr(lib, name)
@@ -121,35 +64,13 @@ def build() -> BuildInfo:
         getattr(lib, name).restype = i32
     if lib.lifelike_rollout_param_len() != _PARAM_LEN:
         raise RuntimeError("kernel parameter layout differs from ops/rollout_cuda.py")
-    _LIB, _BUILD = lib, BuildInfo(path=so, seconds=seconds, ptxas=ptxas)
+    _LIB, _BUILD = lib, info
     return _BUILD
 
 
 def ptxas_summary(text):
-    """{kernel symbol: {registers, spill_stores, spill_loads, stack}} from a
-    ptxas -v report."""
-    out, current = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            current = m.group(1)
-            out.setdefault(current, {})
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and current:
-            out[current].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                                spill_loads=int(m.group(3)))
-            continue
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            current = m.group(1)
-            out.setdefault(current, {})
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and current:
-            out[current]["registers"] = int(m.group(1))
-    return {k: v for k, v in out.items() if "rollout_tracking_kernel" in k}
+    """ptxas registers / spills / stack of the rollout kernel's instances."""
+    return cuda_build.ptxas_summary(text, "rollout_tracking_kernel")
 
 
 def kernel_attributes(dtype=torch.float32, horizon=50):

@@ -1,15 +1,18 @@
 """Physics stepping for the MAX quadruped: PD control + dynamics + contact.
 
-Port of lifelike_tpu.physics.engine (flat-ground path): 10 PD substeps at
-500 Hz per 50 Hz control step. PD law as reference legged_robot.py:119-148:
-targets clipped to +-3 rad, tau = kp (q* - q) + kd (0 - qd), clipped to
-+-max_tau; URDF joint damping and smoothed Coulomb joint friction act as
-passive torques, plus a joint-limit spring/damper.
+Port of lifelike_tpu.physics.engine: 10 PD substeps at 500 Hz per 50 Hz
+control step. PD law as reference legged_robot.py:119-148: targets clipped
+to +-3 rad, tau = kp (q* - q) + kd (0 - qd), clipped to +-max_tau; URDF
+joint damping and smoothed Coulomb joint friction act as passive torques,
+plus a joint-limit spring/damper. Contact is against flat ground (or a
+heightmap `terrain_fn`) and, with `scene=`, against every box of a
+scene.boxes.BoxScene: feet, wheels and a six-sphere trunk proxy.
 
-This readable batch-leading engine is the plant of the closed loop
-(envs.primitive); the MPPI rollouts run the tile-layout twin engine_tl, or
-the CUDA kernel on the card.
+This readable batch-leading engine is the plant of the closed loops
+(envs.primitive, envs.playground); the MPPI rollouts run the tile-layout
+twin engine_tl, or the CUDA kernels on the card.
 """
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -18,7 +21,11 @@ import torch
 from lifelike_tpu_torch.math import quat
 from lifelike_tpu_torch.math.quat import cross
 from lifelike_tpu_torch.physics import dynamics
-from lifelike_tpu_torch.physics.contact import ContactParams, sphere_ground_force
+from lifelike_tpu_torch.physics.contact import (
+    ContactParams,
+    sphere_boxes_force,
+    sphere_ground_force,
+)
 from lifelike_tpu_torch.physics.dynamics import RobotState, as_const
 
 
@@ -42,9 +49,9 @@ class PhysicsParams(NamedTuple):
 _LIMIT_K = 300.0  # joint-limit spring (N m / rad)
 _LIMIT_D = 2.0
 _TGT_CLIP = 3.0  # reference legged_robot.py:126
-# Trunk collision proxy vs boxes (six r=0.07 spheres on a 3x2 grid). Box
-# contact is not part of this port yet; the table is kept so the tile
-# engine and the kernel share one definition when it lands.
+# Trunk collision proxy vs boxes: six r=0.07 spheres on a 3x2 grid in the
+# body x/y plane, covering the ~0.36 x 0.22 x 0.12 m trunk. float32 on
+# purpose: both engines and the CUDA kernel use these rounded values.
 _TRUNK_RADIUS = 0.07
 _TRUNK_OFFSETS = np.array(
     [[-0.12, -0.05, 0.0], [-0.12, 0.05, 0.0],
@@ -80,8 +87,15 @@ def _terrain_plane(p):
     return h, n
 
 
-def substep(model, params: PhysicsParams, state: RobotState, target_q):
-    """One 500 Hz physics substep on flat ground (semi-implicit Euler)."""
+def substep(model, params: PhysicsParams, state: RobotState, target_q, terrain_fn=None,
+            scene=None):
+    """One 500 Hz physics substep (semi-implicit Euler).
+
+    terrain_fn: p (..., 4, 3) -> (heights, normals), flat ground by default.
+    scene: optional scene.boxes.BoxScene — box SDF forces (tops and vertical
+    faces alike) on the feet, the wheels and the trunk proxy, on top of the
+    ground contact."""
+    terrain_fn = terrain_fn or _terrain_plane
     kin = dynamics.forward_kinematics(model, state)
     origin = state.base_pos
 
@@ -95,11 +109,16 @@ def substep(model, params: PhysicsParams, state: RobotState, target_q):
     )
 
     # foot contacts (sphere fixed to the shank tips, link index 2)
-    h, n = _terrain_plane(kin.p_foot)
+    h, n = terrain_fn(kin.p_foot)
     f_foot = sphere_ground_force(
         kin.p_foot, kin.v_foot, model.foot_radius, h, n, params.contact,
         mu=params.foot_friction,
     )
+    if scene is not None:
+        f_foot = f_foot + sphere_boxes_force(
+            kin.p_foot, kin.v_foot, model.foot_radius, scene.center, scene.half,
+            scene.active, params.contact, params.foot_friction,
+        )
     tb, tj = dynamics.point_force_to_generalized(kin, origin, kin.p_foot, f_foot, 2)
     tau_b = tau_b + tb
     tau_j = tau_j + tj
@@ -108,14 +127,33 @@ def substep(model, params: PhysicsParams, state: RobotState, target_q):
     v_wheel = kin.v_link_origin[..., :, 1, :] + cross(
         kin.w_link[..., :, 1, :], kin.p_wheel - kin.p_joint[..., :, 1, :]
     )
-    hw, nw = _terrain_plane(kin.p_wheel)
+    hw, nw = terrain_fn(kin.p_wheel)
     f_wheel = sphere_ground_force(
         kin.p_wheel, v_wheel, model.wheel_radius, hw, nw, params.contact,
         mu=params.foot_friction,
     )
+    if scene is not None:
+        f_wheel = f_wheel + sphere_boxes_force(
+            kin.p_wheel, v_wheel, model.wheel_radius, scene.center, scene.half,
+            scene.active, params.contact, params.foot_friction,
+        )
     tb, tj = dynamics.point_force_to_generalized(kin, origin, kin.p_wheel, f_wheel, 1)
     tau_b = tau_b + tb
     tau_j = tau_j + tj
+
+    if scene is not None:
+        # trunk proxy vs boxes only (the trunk never reaches the plane before
+        # a fall ends the episode): a base wrench about the base origin
+        offs_w = torch.einsum("...ij,pj->...pi", kin.R_base, as_const(_TRUNK_OFFSETS, origin))
+        p_tr = state.base_pos[..., None, :] + offs_w
+        v_tr = state.base_lin_vel[..., None, :] + cross(state.base_ang_vel[..., None, :], offs_w)
+        f_tr = sphere_boxes_force(
+            p_tr, v_tr, _TRUNK_RADIUS, scene.center, scene.half, scene.active,
+            params.contact, params.foot_friction,
+        )  # (..., 6, 3)
+        tau_b = tau_b + torch.cat(
+            [torch.sum(cross(offs_w, f_tr), dim=-2), torch.sum(f_tr, dim=-2)], dim=-1
+        )
 
     # external world-frame force on the base origin (push randomizer)
     ext = torch.broadcast_to(as_const(params.ext_force, origin), origin.shape)
@@ -144,9 +182,15 @@ def substep(model, params: PhysicsParams, state: RobotState, target_q):
     )
 
 
-def control_step(model, params: PhysicsParams, state: RobotState, target_q):
+def control_step(model, params: PhysicsParams, state: RobotState, target_q, terrain_fn=None,
+                 scene=None):
     """One 50 Hz control step = `substeps` physics substeps with a held target
     (reference primitive_level_env.py:202-210)."""
     for _ in range(params.substeps):
-        state = substep(model, params, state, target_q)
+        state = substep(model, params, state, target_q, terrain_fn, scene=scene)
     return state
+
+
+def make_control_step(model, params: PhysicsParams, terrain_fn=None, scene=None):
+    """f(state, target_q) -> state."""
+    return partial(control_step, model, params, terrain_fn=terrain_fn, scene=scene)

@@ -1,11 +1,12 @@
-"""Tile-layout physics stepping (flat ground).
+"""Tile-layout physics stepping.
 
-Port of lifelike_tpu.physics.engine_tl (plane-contact path): the PD law,
-passive torques, compliant contact and semi-implicit Euler integration of
+Port of lifelike_tpu.physics.engine_tl: the PD law, passive torques,
+compliant contact (ground plane, and with `scene=` the box SDF forces on
+feet, wheels and the trunk proxy) and semi-implicit Euler integration of
 physics.engine, with every field batch-trailing (see physics.batched).
 
-`control_step` here is the plain PyTorch version of the CUDA kernel's
-physics (csrc/scalar_phys.cuh): the kernel is held against it.
+`control_step` here is the plain PyTorch version of the CUDA kernels'
+physics (csrc/scalar_phys.cuh): the kernels are held against it.
 """
 from typing import NamedTuple
 
@@ -15,7 +16,14 @@ from lifelike_tpu_torch.math import quat_tl
 from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.physics.batched import TLConstants, TLState
 from lifelike_tpu_torch.physics.contact import ContactParams
-from lifelike_tpu_torch.physics.engine import _LIMIT_D, _LIMIT_K, _TGT_CLIP, PhysicsParams
+from lifelike_tpu_torch.physics.engine import (
+    _LIMIT_D,
+    _LIMIT_K,
+    _TGT_CLIP,
+    _TRUNK_OFFSETS,
+    _TRUNK_RADIUS,
+    PhysicsParams,
+)
 
 
 def _plane_terrain(p):
@@ -43,6 +51,59 @@ def sphere_ground_force(pos, vel, radius, h, n, cp: ContactParams, mu):
         mu * fn / torch.sqrt(vt_norm**2 + cp.v_slip**2), cp.fric_visc_cap
     )
     return fn[:, None] * n - coef[:, None] * vt
+
+
+class TLScene(NamedTuple):
+    """Box scene in tile layout: one scenario broadcast over the population.
+
+    center/half: (N, 3, 1, 1); active: (N, 1, 1) float mask.
+    """
+
+    center: torch.Tensor
+    half: torch.Tensor
+    active: torch.Tensor
+
+
+def tl_scene(scene) -> TLScene:
+    """Lift an unbatched scene.boxes.BoxScene into tile layout."""
+    return TLScene(
+        center=scene.center[..., None, None],
+        half=scene.half[..., None, None],
+        active=scene.active.to(scene.center.dtype)[..., None, None],
+    )
+
+
+def sphere_boxes_force(pos, vel, radius, ts: TLScene, cp: ContactParams, mu):
+    """Tile-layout contact.sphere_boxes_force: per-box SDF penalty forces.
+
+    pos/vel: (P, 3, Bs, L); returns (P, 3, Bs, L) forces summed over the N
+    boxes. Inside a box the pushout normal is averaged over the faces tied
+    for the least penetration (edges and corners)."""
+    r = pos[:, None] - ts.center[None]  # (P, N, 3, Bs, L)
+    q = r.abs() - ts.half[None]
+    outside = torch.clamp_min(q, 0.0)
+    d_out = torch.sqrt(torch.sum(outside * outside, dim=2) + 1e-9)  # (P, N, Bs, L)
+    d_in = torch.amax(q, dim=2)
+    inside = d_in < 0.0
+    dist = torch.where(inside, d_in, d_out)
+    sign = torch.where(r >= 0.0, 1.0, -1.0).to(pos.dtype)
+    face = (q >= torch.amax(q, dim=2, keepdim=True)).to(pos.dtype)
+    face = face / torch.sum(face, dim=2, keepdim=True).clamp_min(1.0)
+    normal = torch.where(inside[:, :, None], sign * face, sign * outside / d_out[:, :, None])
+
+    pen = torch.clamp_min(radius - dist, 0.0)
+    in_contact = pen > 0.0
+    v = vel[:, None]
+    vn = torch.sum(v * normal, dim=2)
+    fn = cp.kn * pen + cp.dn * torch.clamp_min(-vn, 0.0) * in_contact
+    fn = torch.clamp_min(fn, 0.0) * in_contact
+    vt = v - vn[:, :, None] * normal
+    vt_norm2 = torch.sum(vt * vt, dim=2)
+    coef = torch.clamp_max(
+        mu * fn / torch.sqrt(vt_norm2 + 1e-12 + cp.v_slip**2), cp.fric_visc_cap
+    )
+    f = fn[:, :, None] * normal - coef[:, :, None] * vt
+    return torch.sum(f * ts.active[None, :, None], dim=1)
 
 
 def pd_torques(c: TLConstants, params: PhysicsParams, joint_pos, joint_vel, target_q):
@@ -78,10 +139,11 @@ def freeze_mass(c: TLConstants, s: TLState) -> Frozen:
 
 
 def substep(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
-            frozen: Frozen = None):
+            frozen: Frozen = None, scene: TLScene = None):
     """One 500 Hz step. `frozen`: optional freeze_mass output — the mass
     factorization and leg terms are then not rebuilt from the current
-    configuration (PhysicsParams.mass_freeze fast path)."""
+    configuration (PhysicsParams.mass_freeze fast path). `scene`: box
+    contact on feet, wheels and the trunk proxy, on top of the ground."""
     kin = B.fk(c, s)
     if frozen is None:
         origin = s.base_pos
@@ -99,6 +161,10 @@ def substep(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
     f_foot = sphere_ground_force(
         kin.p_foot, kin.v_foot, c.foot_radius, h, n, params.contact, mu
     )
+    if scene is not None:
+        f_foot = f_foot + sphere_boxes_force(
+            kin.p_foot, kin.v_foot, c.foot_radius, scene, params.contact, mu
+        )
     tb, tj = B.point_forces_to_generalized(
         kin, origin, kin.p_foot, f_foot, 2, S=terms.S
     )
@@ -109,11 +175,27 @@ def substep(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
     f_wheel = sphere_ground_force(
         kin.p_wheel, kin.v_wheel, c.wheel_radius, hw, nw, params.contact, mu
     )
+    if scene is not None:
+        f_wheel = f_wheel + sphere_boxes_force(
+            kin.p_wheel, kin.v_wheel, c.wheel_radius, scene, params.contact, mu
+        )
     tb, tj = B.point_forces_to_generalized(
         kin, origin, kin.p_wheel, f_wheel, 1, S=terms.S
     )
     tau_b = tau_b + tb
     tau_j = tau_j + tj
+
+    if scene is not None:
+        # trunk proxy vs boxes: a base wrench about the BASE position (the
+        # moment arm is the rotated offset, not p - origin)
+        offs = torch.as_tensor(_TRUNK_OFFSETS, dtype=s.base_pos.dtype,
+                               device=s.base_pos.device)
+        offs_w = [torch.einsum("ij...,j->i...", kin.R_base, o) for o in offs]
+        pos = torch.stack([s.base_pos + o for o in offs_w])
+        vel = torch.stack([s.base_lin_vel + quat_tl.cross(s.base_ang_vel, o) for o in offs_w])
+        f_tr = sphere_boxes_force(pos, vel, _TRUNK_RADIUS, scene, params.contact, mu)
+        torque = sum(quat_tl.cross(o, f_tr[p]) for p, o in enumerate(offs_w))
+        tau_b = tau_b + torch.cat([torque, torch.sum(f_tr, dim=0)], dim=0)
 
     ext = torch.as_tensor(params.ext_force, dtype=s.base_pos.dtype,
                           device=s.base_pos.device).reshape(3, 1, 1)
@@ -156,7 +238,8 @@ def substep(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
     )
 
 
-def control_step(c: TLConstants, params: PhysicsParams, s: TLState, target_q):
+def control_step(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
+                 scene: TLScene = None):
     """One 50 Hz control step: `substeps` physics substeps with a held target.
 
     With mass_freeze > 1 the mass matrix is refactored at substep
@@ -166,5 +249,5 @@ def control_step(c: TLConstants, params: PhysicsParams, s: TLState, target_q):
     for i in range(params.substeps):
         if freeze > 1 and i % freeze == 0:
             frozen = freeze_mass(c, s)
-        s = substep(c, params, s, target_q, frozen=frozen)
+        s = substep(c, params, s, target_q, frozen=frozen, scene=scene)
     return s

@@ -2,9 +2,12 @@
 
 Port of lifelike_tpu.solver.mppi_tl: AR(1)-smoothed Gaussian exploration,
 exponentiated-cost (softmax) weighting and receding-horizon warm starts.
-The candidates are scored by ops.rollout_cuda.rollout_tracking_fused — the
-hand-written CUDA kernel whenever the tensors are on the card, its plain
-PyTorch version on the CPU.
+`mppi_update` is the algorithm for any candidate scorer; `mppi_step` scores
+PMC tracking candidates with ops.rollout_cuda.rollout_tracking_fused, and
+the EPMC controllers (solver.mpc_tasks) score theirs with
+ops.traversal_cuda.rollout_traversal_fused — each the hand-written CUDA
+kernel whenever the tensors are on the card, its plain PyTorch version on
+the CPU.
 """
 import math
 
@@ -33,15 +36,13 @@ def _smooth_noise_tl(generator, shape, beta, dtype, device, eps=None):
     return out
 
 
-def mppi_step(c: B.TLConstants, params, cfg: MPPIConfig, generator, state: B.TLState,
-              u_nominal, ref: rollout_tl.RefTraj, eps=None):
+def mppi_update(cfg: MPPIConfig, generator, u_nominal, score, eps=None):
     """One MPPI improvement of u_nominal (H, 4, 3) for a single scenario.
 
-    state: TLState with batch (1, 1), the start of every candidate. The
-    population is laid out as (K / 128, 128) when 128 divides it, else
-    (1, K), and scored by rollout_cuda.rollout_tracking_fused. eps: optional
-    sequence of `cfg.iterations` raw normal tensors (H, 4, 3, Bs, L) used
-    instead of drawing from `generator`.
+    The population is laid out as (K / 128, 128) when 128 divides it, else
+    (1, K); score(u_cand (H, 4, 3, Bs, L)) -> total cost (Bs, L). eps:
+    optional sequence of `cfg.iterations` raw normal tensors (H, 4, 3, Bs, L)
+    used instead of drawing from `generator`.
     Returns (u_improved (H, 4, 3), diagnostics dict).
     """
     K, H = cfg.population, cfg.horizon
@@ -57,13 +58,24 @@ def mppi_step(c: B.TLConstants, params, cfg: MPPIConfig, generator, state: B.TLS
             eps=None if eps is None else eps[it],
         )
         u_cand = (u[..., None, None] + noise).contiguous()  # (H,4,3,Bs,L)
-        total_cost = rollout_cuda.rollout_tracking_fused(c, params, state, u_cand, ref)
+        total_cost = score(u_cand)
         c_min = torch.min(total_cost)
         w = torch.softmax((-(total_cost - c_min) / cfg.temperature).reshape(-1), dim=0)
         w = w.reshape(total_cost.shape)
         u = torch.sum(u_cand * w, dim=(-2, -1))
         c_mean = torch.sum(w * total_cost)
     return u, {"best_cost": c_min, "weighted_cost": c_mean}
+
+
+def mppi_step(c: B.TLConstants, params, cfg: MPPIConfig, generator, state: B.TLState,
+              u_nominal, ref: rollout_tl.RefTraj, eps=None):
+    """mppi_update of a PMC tracking plan: the candidates start from `state`
+    (TLState with batch (1, 1)) and are scored by
+    rollout_cuda.rollout_tracking_fused against the reference `ref`."""
+    def score(u_cand):
+        return rollout_cuda.rollout_tracking_fused(c, params, state, u_cand, ref)
+
+    return mppi_update(cfg, generator, u_nominal, score, eps=eps)
 
 
 def make_mpc_controller(model, c: B.TLConstants, params, clips, cfg: MPPIConfig,

@@ -86,6 +86,12 @@ def ref_step(ref: RefTraj, t) -> RefTraj:
     return RefTraj(*(x[t] for x in ref))
 
 
+def yaw_tl(q):
+    """Base yaw from a tile-layout quaternion (4, Bs, L) -> (Bs, L)."""
+    m = quat_tl.to_matrix(q)
+    return torch.atan2(m[1, 0], m[0, 0])
+
+
 def fall_mask_tl(s: B.TLState):
     """Reference check_terminate (legged_robot.py:158-179) in tile layout:
     roll > 45 deg or pitch > 60 deg. Returns bool (Bs, L)."""

@@ -4,6 +4,7 @@ tile-layout constants and transposes, motion library, compat conversions.
 Tolerances: model data and layout transposes are exact; float64 math is held
 at 1e-12 (same formulas, different op order at most).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -14,11 +15,13 @@ from lifelike_tpu.motion import motion_lib as jml
 from lifelike_tpu.physics import batched as JB
 from lifelike_tpu.physics.dynamics import RobotState as JRobotState
 from lifelike_tpu.robot.model import build_max_model as j_build_max_model
+from lifelike_tpu.solver import rollout_tl as jrollout_tl
 from lifelike_tpu_torch.compat import from_jax
 from lifelike_tpu_torch.math import quat, quat_tl
 from lifelike_tpu_torch.motion import motion_lib
 from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.robot.model import MaxModel, build_max_model
+from lifelike_tpu_torch.solver import rollout_tl
 
 from tests.torch_port_util import CPU, F64, assert_close, assert_tree_close, random_robot_state
 
@@ -79,24 +82,37 @@ def _check_quat_ops_match_reference():
     rv = 0.7 * rng.standard_normal((16, 3))
     rv[0] = 0.0  # exact zero rotation: the sinc branch
     t = rng.uniform(size=16)
-    T = lambda x: torch.as_tensor(x)
-    J = jnp.asarray
-    assert_close(quat.mul(T(q1), T(q2)), jquat.mul(J(q1), J(q2)), **TOL)
-    assert_close(quat.rotate(T(q1), T(v)), jquat.rotate(J(q1), J(v)), **TOL)
-    assert_close(quat.rotate_inv(T(q1), T(v)), jquat.rotate_inv(J(q1), J(v)), **TOL)
-    assert_close(quat.to_matrix(T(q1)), jquat.to_matrix(J(q1)), **TOL)
-    assert_close(quat.from_rotvec(T(rv)), jquat.from_rotvec(J(rv)), **TOL)
-    assert_close(quat.to_rotvec(T(q1)), jquat.to_rotvec(J(q1)), **TOL)
-    assert_close(quat.slerp(T(q1), T(q2), T(t)), jquat.slerp(J(q1), J(q2), J(t)), **TOL)
-    assert_close(quat.slerp(T(q1), T(q1), T(t)), jquat.slerp(J(q1), J(q1), J(t)), **TOL)
-    assert_close(quat.integrate(T(q1), T(rv), 0.002), jquat.integrate(J(q1), J(rv), 0.002), **TOL)
-    assert_close(quat.diff_rotvec(T(q1), T(q2)), jquat.diff_rotvec(J(q1), J(q2)), **TOL)
+    yaw = rng.uniform(-4.0, 4.0, size=16)
     # tile layout: component axis leading
     qa, qb, w = q1.T.reshape(4, 4, 4), q2.T.reshape(4, 4, 4), rv.T.reshape(3, 4, 4)
-    assert_close(quat_tl.rel_angle(T(qa), T(qb)), jquat_tl.rel_angle(J(qa), J(qb)), **TOL)
-    assert_close(quat_tl.integrate(T(qa), T(w), 0.002),
-                 jquat_tl.integrate(J(qa), J(w), 0.002), **TOL)
-    assert_close(quat_tl.to_matrix(T(qa)), jquat_tl.to_matrix(J(qa)), **TOL)
+
+    @jax.jit
+    def reference(q1, q2, v, rv, t, yaw, qa, qb, w):
+        return dict(
+            mul=jquat.mul(q1, q2), rotate=jquat.rotate(q1, v),
+            rotate_inv=jquat.rotate_inv(q1, v), to_matrix=jquat.to_matrix(q1),
+            from_rotvec=jquat.from_rotvec(rv), to_rotvec=jquat.to_rotvec(q1),
+            slerp=jquat.slerp(q1, q2, t), slerp_same=jquat.slerp(q1, q1, t),
+            integrate=jquat.integrate(q1, rv, 0.002), diff_rotvec=jquat.diff_rotvec(q1, q2),
+            yaw=jquat.yaw(q1), from_yaw=jquat.from_yaw(yaw),
+            rel_angle_tl=jquat_tl.rel_angle(qa, qb), integrate_tl=jquat_tl.integrate(qa, w, 0.002),
+            to_matrix_tl=jquat_tl.to_matrix(qa), yaw_tl=jrollout_tl.yaw_tl(qa),
+        )
+
+    want = reference(*(jnp.asarray(x) for x in (q1, q2, v, rv, t, yaw, qa, qb, w)))
+    T = torch.as_tensor
+    got = dict(
+        mul=quat.mul(T(q1), T(q2)), rotate=quat.rotate(T(q1), T(v)),
+        rotate_inv=quat.rotate_inv(T(q1), T(v)), to_matrix=quat.to_matrix(T(q1)),
+        from_rotvec=quat.from_rotvec(T(rv)), to_rotvec=quat.to_rotvec(T(q1)),
+        slerp=quat.slerp(T(q1), T(q2), T(t)), slerp_same=quat.slerp(T(q1), T(q1), T(t)),
+        integrate=quat.integrate(T(q1), T(rv), 0.002), diff_rotvec=quat.diff_rotvec(T(q1), T(q2)),
+        yaw=quat.yaw(T(q1)), from_yaw=quat.from_yaw(T(yaw)),
+        rel_angle_tl=quat_tl.rel_angle(T(qa), T(qb)), integrate_tl=quat_tl.integrate(T(qa), T(w), 0.002),
+        to_matrix_tl=quat_tl.to_matrix(T(qa)), yaw_tl=rollout_tl.yaw_tl(T(qa)),
+    )
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[name]), **TOL, err_msg=name)
 
 
 def _clips_pair(seed=0, n=480):
@@ -125,13 +141,16 @@ def _check_sample_frame_matches_reference_incl_out_of_range(dtype):
     rng = np.random.default_rng(2)
     t = rng.uniform(-0.5, 5.0, size=(24,)).astype(dtype)
     ci = rng.integers(0, 2, size=(24,))
+    # op by op: jitted, XLA rounds the float32 clip's finite differences
+    # differently (a 1-ulp float32 change, beyond this check's 1e-12)
     want = jml.sample_frame(jc, jnp.asarray(ci), jnp.asarray(t))
+    want_ended = jml.is_ended(jc, jnp.asarray(ci), jnp.asarray(t))
     got = motion_lib.sample_frame(pc, torch.as_tensor(ci), torch.as_tensor(t))
     tol = TOL if dtype == "float64" else dict(rtol=1e-5, atol=1e-5)
     assert_tree_close(got, want, **tol)
     np.testing.assert_array_equal(
         motion_lib.is_ended(pc, torch.as_tensor(ci), torch.as_tensor(t)).numpy(),
-        np.asarray(jml.is_ended(jc, jnp.asarray(ci), jnp.asarray(t))),
+        np.asarray(want_ended),
     )
 
 
@@ -141,8 +160,8 @@ def _check_future_goal_features_match_reference():
     d = random_robot_state(rng, batch=(5,))
     t = rng.uniform(0.0, 2.0, size=(5,))
     ci = np.zeros(5, np.int64)
-    jf = jml.future_goal_features(jnp.asarray(d["base_pos"]), jnp.asarray(d["base_orn"]),
-                                  jml.sample_future(jc, jnp.asarray(ci), jnp.asarray(t)))
+    jf = jax.jit(lambda p, o, c, s: jml.future_goal_features(p, o, jml.sample_future(jc, c, s)))(
+        jnp.asarray(d["base_pos"]), jnp.asarray(d["base_orn"]), jnp.asarray(ci), jnp.asarray(t))
     pf = motion_lib.future_goal_features(
         torch.as_tensor(d["base_pos"]), torch.as_tensor(d["base_orn"]),
         motion_lib.sample_future(pc, torch.as_tensor(ci), torch.as_tensor(t)))
@@ -182,15 +201,23 @@ def _check_tracking_terms_match_reference():
     J = lambda dd: JRS(**{k: jnp.asarray(v) for k, v in dd.items()})
     P = lambda dd: from_jax.robot_state(J(dd), CPU, F64)
     w = jtracking.TrackingWeights(0.3, 0.05, 0.1, 0.5, 0.05)
-    want = jtracking.tracking_reward(J(d), jnp.asarray(feet), J(r), jnp.asarray(ref_feet), w)
+
+    @jax.jit
+    def reference(s, feet, r, ref_feet):
+        return (jtracking.tracking_reward(s, feet, r, ref_feet, w),
+                dict(fall_terminated=jtracking.fall_terminated(s),
+                     blown_up=jtracking.blown_up(s)),
+                jtracking.divergence_terminated(s, r))
+
+    want, want_flags, want_div = reference(J(d), jnp.asarray(feet), J(r), jnp.asarray(ref_feet))
     got = tracking.tracking_reward(P(d), torch.as_tensor(feet), P(r), torch.as_tensor(ref_feet),
                                    tracking.TrackingWeights(*w))
     assert_close(got, want, **TOL)
     for name in ("fall_terminated", "blown_up"):
         np.testing.assert_array_equal(getattr(tracking, name)(P(d)).numpy(),
-                                      np.asarray(getattr(jtracking, name)(J(d))), err_msg=name)
+                                      np.asarray(want_flags[name]), err_msg=name)
     np.testing.assert_array_equal(tracking.divergence_terminated(P(d), P(r)).numpy(),
-                                  np.asarray(jtracking.divergence_terminated(J(d), J(r))))
+                                  np.asarray(want_div))
     assert tracking.fall_terminated(P(d)).any() and tracking.blown_up(P(d)).sum() == 2
 
 

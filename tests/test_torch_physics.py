@@ -38,14 +38,19 @@ def _pair(d):
 def _check_forward_kinematics_and_dynamics_terms():
     rng = np.random.default_rng(10)
     js, ps = _pair(random_robot_state(rng, batch=(3,)))
-    jk = jdyn.forward_kinematics(JMODEL, js)
+
+    @jax.jit
+    def reference(js):
+        jk = jdyn.forward_kinematics(JMODEL, js)
+        return (jk, jdyn.mass_matrix_blocks(JMODEL, jk, js.base_pos, js.base_pos),
+                jdyn.bias_forces(JMODEL, jk, js, js.base_pos))
+
+    jk, (jMb, jF, jMl), jb = reference(js)
     pk = dynamics.forward_kinematics(MODEL, ps)
     assert_tree_close(pk, jk, **TOL)
-    jMb, jF, jMl = jdyn.mass_matrix_blocks(JMODEL, jk, js.base_pos, js.base_pos)
     pMb, pF, pMl = dynamics.mass_matrix_blocks(MODEL, pk, ps.base_pos, ps.base_pos)
     for g, w in ((pMb, jMb), (pF, jF), (pMl, jMl)):
         assert_close(g, w, **TOL)
-    jb = jdyn.bias_forces(JMODEL, jk, js, js.base_pos)
     pb = dynamics.bias_forces(MODEL, pk, ps, ps.base_pos)
     for g, w in zip(pb, jb):
         assert_close(g, w, **TOL)

@@ -100,26 +100,40 @@ def _check_run_mpc_cpu_reports_finite_rewards():
 
 
 def _check_profile_mpc_cpu():
-    out = profile_mpc.main(["--device=cpu", "--population=128", "--horizon=3", "--steps=1"])
-    assert out["solve_ms"] > 0 and "aten::" in out["host_top"]
-    # device figures exist only on the card
-    assert out["device_ms"] is None and out["idle_share"] is None
+    # horizon 1 keeps the profiler's event tables small
+    for task in ("pmc", "epmc"):
+        out = profile_mpc.main([f"--task={task}", "--device=cpu", "--population=128",
+                                "--horizon=1", "--steps=1"])
+        assert out["solve_ms"] > 0 and "aten::" in out["host_top"]
+        # device figures exist only on the card
+        assert out["device_ms"] is None and out["idle_share"] is None
 
 
 def _check_run_mpc_without_device_cpu_raises():
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        run_mpc.main(["--steps=1"])
+    for task in ("pmc", "epmc"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_mpc.main([f"--task={task}", "--steps=1"])
 
 
 def _check_port_imports_no_jax_and_no_reference_package():
+    """In a fresh interpreter: import every module of the port and
+    chip_smoke.py, and, where no card is present, run chip_smoke's main,
+    which must fail without a result line."""
     code = r"""
-import importlib, importlib.util, pkgutil, sys
+import contextlib, importlib, importlib.util, io, pkgutil, sys
 import lifelike_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lifelike_tpu_torch.__path__, "lifelike_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+import torch
+if not torch.cuda.is_available():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = smoke.main()
+    assert rc != 0 and '"ok": true' not in out.getvalue(), (rc, out.getvalue())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "absl", "flax", "lifelike_tpu"))
 print(len(names), bad)
@@ -131,11 +145,7 @@ assert len(names) >= 20, names
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def _check_chip_smoke_fails_without_card_or_package(tmp_path):
-    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
-                          text=True, timeout=120)
-    assert proc.returncode != 0
-    assert '"ok": true' not in proc.stdout
+def _check_chip_smoke_fails_alone(tmp_path):
     lone = tmp_path / "chip_smoke.py"
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         lone.write_text(f.read())
@@ -152,12 +162,13 @@ def _check_chip_smoke_fails_without_card_or_package(tmp_path):
 
 
 def test_entry_point_contract(tmp_path):
-    """run_mpc and profile_mpc on the CPU; no JAX / absl / lifelike_tpu in the port's
-    imports; and, where no card is present, run_mpc without --device=cpu
-    and chip_smoke.py (in the repo and alone in a directory) fail."""
+    """run_mpc and profile_mpc (both tasks) on the CPU; no JAX / absl /
+    lifelike_tpu in the port's imports; chip_smoke.py alone in a directory
+    fails; and, where no card is present, run_mpc without --device=cpu and
+    chip_smoke.py in the repo fail."""
     _check_run_mpc_cpu_reports_finite_rewards()
     _check_profile_mpc_cpu()
     _check_port_imports_no_jax_and_no_reference_package()
+    _check_chip_smoke_fails_alone(tmp_path)
     if not torch.cuda.is_available():
         _check_run_mpc_without_device_cpu_raises()
-        _check_chip_smoke_fails_without_card_or_package(tmp_path)

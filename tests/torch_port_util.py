@@ -39,3 +39,59 @@ def assert_close(got, want, rtol, atol):
 def assert_tree_close(got, want, rtol, atol):
     for name, g, w in zip(got._fields, got, want):
         np.testing.assert_allclose(np_of(g), np_of(w), rtol=rtol, atol=atol, err_msg=name)
+
+
+STAND_POSE = np.array([-0.0278, -0.7790, 1.6873, -0.0276, -0.7777, 1.6838,
+                       -0.0278, -0.7334, 1.5669, -0.0276, -0.7319, 1.5632])
+
+
+def stand_state(pos=(0.0, 0.0, 0.33), vel=(0.4, 0.0, 0.0), yaw=0.0):
+    """Standing pose (numpy, unbatched) at `pos` heading `yaw`."""
+    return dict(
+        base_pos=np.array(pos, np.float64),
+        base_orn=np.array([0.0, 0.0, np.sin(yaw / 2), np.cos(yaw / 2)]),
+        base_lin_vel=np.array(vel, np.float64),
+        base_ang_vel=np.zeros(3),
+        joint_pos=STAND_POSE.copy(),
+        joint_vel=np.zeros(12),
+    )
+
+
+def contact_scene(model, state, capacity=12):
+    """Box table (numpy center, half, active, target_pos) around `state`
+    such that every kind of box contact fires from the first substep: a step
+    4 mm up into foot 0, a hurdle whose -x top edge sits under foot 1 (4 mm
+    up into it), a block 3 mm into wheel 2's outer side and a wall 10 mm
+    into the trunk proxy's +y side; behind them the two corridor walls and a
+    hole bar, the rest inactive padding. Needs the feet off the ground, e.g.
+    stand_state(pos=(0, 0, 0.36))."""
+    from lifelike_tpu_torch.physics import dynamics
+    from lifelike_tpu_torch.physics.dynamics import RobotState
+
+    rs = RobotState(*(torch.as_tensor(state[f], dtype=F64) for f in RobotState._fields))
+    kin = dynamics.forward_kinematics(model, rs)
+    foot, wheel = kin.p_foot.numpy(), kin.p_wheel.numpy()
+    rf, rw = model.foot_radius, model.wheel_radius
+    base = state["base_pos"]
+
+    def on_ground(x, y, hx, hy, top):
+        return [x, y, top / 2], [hx, hy, top / 2]
+
+    side = np.sign(wheel[2, 1])
+    rows = [
+        on_ground(foot[0, 0], foot[0, 1], 0.06, 0.06, foot[0, 2] - rf + 0.004),
+        on_ground(foot[1, 0] + 0.05, foot[1, 1], 0.05, 0.05, foot[1, 2] - rf + 0.004),
+        ([wheel[2, 0], wheel[2, 1] + side * (rw - 0.003 + 0.05), wheel[2, 2]],
+         [0.05, 0.05, 0.05]),
+        ([base[0], base[1] + 0.05 + 0.07 - 0.010 + 0.1, base[2] + 0.15], [0.3, 0.1, 0.2]),
+        ([5.0, 1.2, 1.0], [100.0, 0.1, 1.0]),
+        ([5.0, -1.2, 1.0], [100.0, 0.1, 1.0]),
+        ([base[0] + 0.6, 0.0, 0.42], [0.05, 1.1, 0.15]),
+    ]
+    center = np.zeros((capacity, 3))
+    half = np.zeros((capacity, 3))
+    for i, (c, h) in enumerate(rows):
+        center[i], half[i] = c, h
+    active = np.arange(capacity) < len(rows)
+    return dict(center=center, half=half, active=active,
+                target_pos=np.array([base[0] + 4.0, 0.3, 0.0]))
