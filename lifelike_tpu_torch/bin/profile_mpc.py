@@ -1,8 +1,9 @@
 """Where the time of an MPC solve goes: torch.profiler over closed-loop
-solves of bin/run_mpc's controller (--task=pmc or --task=epmc).
+solves of bin/run_mpc's controller (--task=pmc, epmc or sepmc).
 
   python -m lifelike_tpu_torch.bin.profile_mpc --population=4096 --horizon=50 --steps=5
   python -m lifelike_tpu_torch.bin.profile_mpc --task=epmc --population=4096 --horizon=50
+  python -m lifelike_tpu_torch.bin.profile_mpc --task=sepmc --population=2048 --horizon=50
   python -m lifelike_tpu_torch.bin.profile_mpc --device=cpu --population=128 --horizon=3
 
 Takes run_mpc's flags. After WARMUP closed-loop control steps (solve and
@@ -12,9 +13,10 @@ warm start the one before returned, and the plant is not stepped in
 between. Prints the mean solve wall time without and with the profiler
 (host clock, the card synchronized after each solve), the device time per
 solve summed over the profiler's device events, the device's idle share of
-the unprofiled solve (the profiler slows the host, not the kernels), and
-the operators with the most host and device time; the full tables go to
---out when it is given.
+the unprofiled solve (the profiler slows the host, not the kernels), the
+kernel launches and memory copies the host issues per solve, and the
+operators with the most host and device time; the full tables go to --out
+when it is given.
 """
 import sys
 import time
@@ -24,7 +26,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from lifelike_tpu_torch.bin import run_mpc
-from lifelike_tpu_torch.envs import playground, primitive
+from lifelike_tpu_torch.envs import chase_tag, playground, primitive
 
 WARMUP = 2  # control steps before profiling; the first solve builds the kernel
 
@@ -48,6 +50,9 @@ class _Loop:
         if args.task == "epmc":
             self.dev, self.model, self.cfg, self.ctrl, self.gen, self.env, self.u = \
                 run_mpc.setup_epmc(args)
+        elif args.task == "sepmc":
+            self.dev, self.model, self.cfg, self.ctrl, self.gen, self.env, self.u = \
+                run_mpc.setup_sepmc(args)
         else:
             (self.dev, self.model, self.clips, self.cfg, self.ctrl, self.gen, self.env,
              self.u) = run_mpc.setup_pmc(args)
@@ -55,6 +60,9 @@ class _Loop:
 
     def solve(self, u):
         e = self.env
+        if self.task == "sepmc":
+            tgt, u, _ = self.ctrl(self.gen, e.robots, e.scene, e.flag_pos, e.with_flag, u)
+            return tgt - e.robots.joint_pos, u
         if self.task == "epmc":
             tgt, u, _ = self.ctrl(self.gen, e.robot, e.scene, e.target_pos, e.target_spd, u)
         else:
@@ -62,7 +70,9 @@ class _Loop:
         return tgt - e.robot.joint_pos, u
 
     def advance(self, action):
-        if self.task == "epmc":
+        if self.task == "sepmc":
+            self.env = chase_tag.step(self.model, self.cfg, self.env, action, self.gen)[0]
+        elif self.task == "epmc":
             self.env = playground.step(self.model, self.cfg, self.env, action, self.gen)[0]
         else:
             self.env = primitive.step(self.model, self.clips, self.cfg, self.env, action)[0]
@@ -70,7 +80,8 @@ class _Loop:
 
 def profile_solve(args, log=print):
     """Returns {"solve_ms", "profiled_solve_ms", "device_ms", "idle_share",
-    "host_top", "device_top"}; device figures are None on the CPU."""
+    "launches_per_solve", "memcpys_per_solve", "host_top", "device_top"};
+    device figures are None on the CPU."""
     loop = _Loop(args)
     dev, u = loop.dev, loop.u
 
@@ -102,6 +113,11 @@ def profile_solve(args, log=print):
                         if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
         device_ms = device_us / 1e3 / args.steps
         idle = max(0.0, 1.0 - device_ms / solve_ms) if device_us > 0 else None
+    # the host's CUDA runtime calls (the kernels launched through ctypes go
+    # through cudaLaunchKernel as well)
+    launches = sum(e.count for e in avg if e.key in ("cudaLaunchKernel", "cuLaunchKernel")
+                   ) / args.steps
+    memcpys = sum(e.count for e in avg if e.key.startswith("cudaMemcpy")) / args.steps
     host_top = avg.table(sort_by="self_cpu_time_total", row_limit=12)
     device_top = (avg.table(sort_by="self_device_time_total", row_limit=12)
                   if dev.type == "cuda" else "")
@@ -113,14 +129,14 @@ def profile_solve(args, log=print):
                 f.write(avg.table(sort_by="self_device_time_total", row_limit=-1))
     log("%s solve profile: pop %d H %d iterations %d | %d solves | solve %.3f ms, "
         "%.3f ms under the profiler (host clock, synchronized) | device %s ms/solve | "
-        "device idle share %s" % (
+        "device idle share %s | per solve %.1f kernel launches, %.1f memcpys" % (
             args.task.upper(), args.population, args.horizon, args.iterations, args.steps,
             solve_ms, profiled_ms,
             "not measured" if device_ms is None else "%.3f" % device_ms,
-            "not measured" if idle is None else "%.4f" % idle))
+            "not measured" if idle is None else "%.4f" % idle, launches, memcpys))
     return {"solve_ms": solve_ms, "profiled_solve_ms": profiled_ms,
-            "device_ms": device_ms, "idle_share": idle,
-            "host_top": host_top, "device_top": device_top}
+            "device_ms": device_ms, "idle_share": idle, "launches_per_solve": launches,
+            "memcpys_per_solve": memcpys, "host_top": host_top, "device_top": device_top}
 
 
 def main(argv=None):

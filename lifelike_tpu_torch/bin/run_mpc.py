@@ -1,6 +1,7 @@
-"""MPC evaluation CLI: closed-loop PMC tracking and EPMC traversal solves.
+"""MPC evaluation CLI: closed-loop PMC tracking, EPMC traversal and SEPMC
+Chase-Tag solves.
 
-Port of lifelike_tpu.bin.run_mpc --task=pmc / --task=epmc. A
+Port of lifelike_tpu.bin.run_mpc --task=pmc / epmc / sepmc. A
 receding-horizon MPPI controller solves the task online and the CLI reports
 per-episode statistics:
 
@@ -9,11 +10,18 @@ per-episode statistics:
   * epmc: traverse a randomized playground course (--element_id 0
     joystick, 1 hurdles, 2 holes, 3 cubes) on the envs.playground plant
     with box contact (solver.mpc_tasks; candidates scored by the CUDA
-    traversal rollout kernel on the card).
+    traversal rollout kernel on the card);
+  * sepmc: play Chase Tag in the V4 arena, both robots solved by
+    alternating best response (--best_response rounds per control step) on
+    the envs.chase_tag plant (solver.mpc_tasks.make_chase_solver; on the
+    card the opponent's plan is rolled by the CUDA plan kernel and each
+    robot's candidates are scored by the CUDA chase kernel); reports per
+    game the rewards, the roles, the length and the catch / fall.
 
   python -m lifelike_tpu_torch.bin.run_mpc --task=pmc --steps=50
   python -m lifelike_tpu_torch.bin.run_mpc --clip=clip.txt --population=4096 --horizon=50
   python -m lifelike_tpu_torch.bin.run_mpc --task=epmc --element_id=1
+  python -m lifelike_tpu_torch.bin.run_mpc --task=sepmc --population=2048 --horizon=50
   python -m lifelike_tpu_torch.bin.run_mpc --device=cpu --population=128 --horizon=3
 
 --clip takes a reference-format JSON clip file (or directory); the default
@@ -27,9 +35,11 @@ import numpy as np
 import torch
 
 from lifelike_tpu_torch import _device
-from lifelike_tpu_torch.envs import playground, primitive
+from lifelike_tpu_torch.costs import tracking
+from lifelike_tpu_torch.envs import chase_tag, playground, primitive
 from lifelike_tpu_torch.motion import motion_lib
 from lifelike_tpu_torch.physics import batched as B
+from lifelike_tpu_torch.physics.dynamics import RobotState
 from lifelike_tpu_torch.robot.model import build_max_model
 from lifelike_tpu_torch.scene import playground_gen
 from lifelike_tpu_torch.solver import mpc_tasks, mppi, mppi_tl
@@ -37,7 +47,7 @@ from lifelike_tpu_torch.solver import mpc_tasks, mppi, mppi_tl
 
 def arg_parser(description=__doc__.split("\n")[0]):
     p = argparse.ArgumentParser(description=description)
-    p.add_argument("--task", default="pmc", choices=["pmc", "epmc"],
+    p.add_argument("--task", default="pmc", choices=["pmc", "epmc", "sepmc"],
                    help="which level's MPC problem to solve")
     p.add_argument("--clip", default="synthetic",
                    help="mocap clip file or directory, or 'synthetic' (pmc)")
@@ -47,6 +57,8 @@ def arg_parser(description=__doc__.split("\n")[0]):
     p.add_argument("--population", type=int, default=512, help="MPPI population")
     p.add_argument("--horizon", type=int, default=10, help="MPC horizon (control steps)")
     p.add_argument("--iterations", type=int, default=1, help="MPPI iterations per solve")
+    p.add_argument("--best_response", type=int, default=1,
+                   help="alternating best-response rounds per control step (sepmc)")
     p.add_argument("--seed", type=int, default=0, help="generator seed")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
@@ -200,9 +212,66 @@ def run_epmc(args, log=print):
             "t_solve": t_solve, "device": str(dev)}
 
 
+def setup_sepmc(args):
+    """(device, model, env config, solver, generator, first game state,
+    zero warm starts (2, H, 4, 3)) of the SEPMC closed loop, float32: the
+    default V4 arena and ChaseTagConfig plant (kd 1, max_tau 16, substeps
+    20), MPPI at sigma 0.15, --best_response rounds per solve."""
+    dev = _device.resolve_device(args.device)
+    dtype = torch.float32
+    model = build_max_model()
+    cfg = chase_tag.ChaseTagConfig()
+    mcfg = mppi.MPPIConfig(horizon=args.horizon, population=args.population,
+                           iterations=args.iterations, sigma=0.15)
+    c = B.tl_constants(model, dtype=dtype, device=dev)
+    solver = mpc_tasks.make_chase_solver(model, c, cfg.params, mcfg,
+                                         n_best_response=args.best_response, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    s, _ = chase_tag.reset(model, cfg, gen, dtype=dtype)
+    u = torch.zeros((2, mcfg.horizon, 4, 3), dtype=dtype, device=dev)
+    return dev, model, cfg, solver, gen, s, u
+
+
+def run_sepmc(args, log=print):
+    """Chase Tag closed loop; returns a dict of per-step rewards (both
+    robots), the games that ended (rewards, roles at the end, length, catch,
+    fall of robot 0, timeout), episode ends and solve times (seconds;
+    CUDA-event times on the card)."""
+    dev, model, cfg, solver, gen, s, u = setup_sepmc(args)
+    step_rewards, episode_ends, games, t_solve = [], [], [], []
+    rew_sum = np.zeros(2)
+    start = 0
+    for i in range(args.steps):
+        (tgt, u, _), dt = _timed(
+            dev, lambda: solver(gen, s.robots, s.scene, s.flag_pos, s.with_flag, u))
+        t_solve.append(dt)
+        s, _, r, done, info = chase_tag.step(model, cfg, s, tgt - s.robots.joint_pos, gen)
+        r = r.double().cpu().numpy()
+        rew_sum += r
+        step_rewards.append(r.tolist())
+        if bool(done):
+            robot0 = RobotState(*(x[0] for x in s.robots))
+            games.append(dict(
+                rewards=rew_sum.tolist(), with_flag=s.with_flag.cpu().tolist(), len=i + 1 - start,
+                caught=bool(info["caught"]), fall=bool(tracking.fall_terminated(robot0)),
+                timeout=bool(s.counter >= cfg.max_steps)))
+            episode_ends.append(i)
+            log("game end at step %d: %s" % (i, games[-1]))
+            rew_sum, start = np.zeros(2), i + 1
+            s, _ = chase_tag.reset(model, cfg, gen, dtype=s.robots.base_pos.dtype)
+            u = torch.zeros_like(u)
+    dist = float(torch.linalg.vector_norm(s.robots.base_pos[0, :2] - s.robots.base_pos[1, :2]))
+    log("SEPMC MPC eval: %d games | final dist %.2f m | solve p50 %.1f ms" % (
+        len(games), dist,
+        1e3 * float(np.percentile(t_solve[1:], 50)) if len(t_solve) > 1 else -1))
+    return {"step_rewards": step_rewards, "games": games, "episode_ends": episode_ends,
+            "final_dist": dist, "t_solve": t_solve, "device": str(dev)}
+
+
 def main(argv=None):
     args = parse_args(argv)
-    return {"pmc": run_pmc, "epmc": run_epmc}[args.task](args)
+    return {"pmc": run_pmc, "epmc": run_epmc, "sepmc": run_sepmc}[args.task](args)
 
 
 if __name__ == "__main__":

@@ -12,15 +12,17 @@ import numpy as np
 import torch
 
 from lifelike_tpu_torch import _device
+from lifelike_tpu_torch.envs.chase_tag import ChaseTagConfig, ChaseTagState
 from lifelike_tpu_torch.envs.playground import PlaygroundState
 from lifelike_tpu_torch.envs.primitive import PrimitiveEnvState
-from lifelike_tpu_torch.envs.randomizer import PushState
+from lifelike_tpu_torch.envs.randomizer import PushConfig, PushState
 from lifelike_tpu_torch.motion.motion_lib import MotionClips
 from lifelike_tpu_torch.physics.batched import TLConstants, TLState
 from lifelike_tpu_torch.physics.contact import ContactParams
 from lifelike_tpu_torch.physics.dynamics import RobotState
 from lifelike_tpu_torch.physics.engine import PhysicsParams
 from lifelike_tpu_torch.robot.model import MaxModel
+from lifelike_tpu_torch.scene.arena_gen import ArenaConfig
 from lifelike_tpu_torch.scene.boxes import BoxScene
 from lifelike_tpu_torch.solver.rollout_tl import RefTraj
 
@@ -112,3 +114,33 @@ def playground_state(e, device="cuda", dtype=None) -> PlaygroundState:
     kw = {f: _tensor(getattr(e, f), dev, dtype) for f in PlaygroundState._fields
           if f not in nested}
     return PlaygroundState(**nested, **kw)
+
+
+def chase_tag_state(e, device="cuda", dtype=None) -> ChaseTagState:
+    """envs.chase_tag.ChaseTagState (robots with the agent axis, arena
+    scene, push state, game counters, roles, flag, histories); integer and
+    bool leaves keep their types."""
+    dev = _device.resolve_device(device)
+    nested = {"robots": robot_state(e.robots, dev, dtype),
+              "scene": box_scene(e.scene, dev, dtype),
+              "push": _fields(e.push, PushState, dev, dtype)}
+    kw = {f: _tensor(getattr(e, f), dev, dtype) for f in ChaseTagState._fields
+          if f not in nested}
+    return ChaseTagState(**nested, **kw)
+
+
+def chase_tag_config(cfg) -> ChaseTagConfig:
+    """envs.chase_tag.ChaseTagConfig (plant parameters, arena elements and
+    version, pushes, episode and randomization ranges) with host scalars."""
+    return ChaseTagConfig(
+        params=physics_params(cfg.params),
+        arena=ArenaConfig(*(bool(x) for x in cfg.arena)),
+        version=str(cfg.version),
+        height_offset=tuple(float(x) for x in cfg.height_offset),
+        push=PushConfig(*(tuple(float(y) for y in x) if isinstance(x, tuple) else float(x)
+                          for x in cfg.push)),
+        max_steps=int(cfg.max_steps),
+        friction_range=tuple(float(x) for x in cfg.friction_range),
+        visible_angle=float(cfg.visible_angle),
+        control_spd_range=tuple(float(x) for x in cfg.control_spd_range),
+    )

@@ -29,7 +29,9 @@
 // once per block in shared memory; the stage cost accumulates in
 // registers. The box loop stays rolled over the shared table and one
 // sphere's force is summed at a time, so the box contact adds per-box
-// temporaries, not K copies of them, to the register budget.
+// temporaries, not K copies of them, to the register budget. The posture,
+// fall, clearance and gait terms live in task_cost.cuh, shared with the
+// chase kernel (rollout_chase.cu).
 //
 // Built with plain nvcc into a shared library with a C ABI (loaded with
 // ctypes by ops/traversal_cuda.py); float and double instances are exported.
@@ -37,14 +39,11 @@
 #include <cuda_runtime.h>
 
 #include "scalar_phys.cuh"
+#include "task_cost.cuh"
 
 namespace lifelike {
 
 constexpr int kBlock = 32;     // threads (= candidates) per block
-constexpr int kRefWidth = 64;  // packed reference row (rollout_pallas.py:43-52)
-constexpr int kOffTarget = 0;
-constexpr int kOffJP = 12;
-constexpr int kOffJV = 24;
 constexpr int kTaskWidth = 8;  // target x, y, z, speed, pad
 constexpr int kParamLen = 43;  // host double parameter vector, see params_from_host
 
@@ -52,32 +51,13 @@ constexpr int kParamLen = 43;  // host double parameter vector, see params_from_
 // rollout's arguments).
 template <typename T>
 struct TravParams {
-  T velocity, heading, clearance, fall;
-  T height, height_min, upright, pose, ceiling, ceiling_w, crawl_gap;
+  T velocity, heading, clearance, fall, crawl_gap;
   T gait_weight, gait_vel_weight;
   T rot_coef;  // 0.2 / max_steps (average-speed rotation term)
-  T stand[12];  // costs/traversal.py STAND_POSE
+  PostureParams<T> post;
   int joystick;  // 1: joystick family, 0: average-speed family
   int n_boxes;
 };
-
-// rollout_tasks.clearance_cost_tl against the box table
-template <typename T>
-__device__ T clearance_cost(const T* pb, const T* boxes, int n_boxes, T crawl_gap) {
-  T total = T(0);
-#pragma unroll 1
-  for (int b = 0; b < n_boxes; ++b) {
-    const T* bx = boxes + b * kBoxWidth;
-    const T ox = at_least(fabs_(pb[0] - bx[0]) - bx[3], T(0));
-    const T oy = at_least(fabs_(pb[1] - bx[1]) - bx[4], T(0));
-    const T horiz = fsqrt(ox * ox + oy * oy);
-    T blocking = (bx[2] + bx[5]) > T(0.3) ? bx[6] : T(0);
-    if (crawl_gap > T(0) && !((bx[2] - bx[5]) < crawl_gap)) blocking = T(0);
-    const T pen = at_least(T(0.15) - horiz, T(0)) * blocking;
-    total += pen * pen;
-  }
-  return total;
-}
 
 // One stage of rollout_tasks.rollout_traversal_gait's cost; last_d carries
 // the average-speed family's distance from one step to the next.
@@ -107,39 +87,10 @@ __device__ T traversal_cost(const TravParams<T>& W, const State<T>& s, const T* 
   // dense shaping on the signed speed
   cost = cost + (W.velocity * fabs_(spd_sg - tspd) / (T(1) + tspd) +
                  W.heading * (T(1) - align));
-  // posture: height hinge, uprightness, stand pose, crawl ceiling
-  const T z = s.pb[2];
-  const T up_z = T(1) - T(2) * (s.q[0] * s.q[0] + s.q[1] * s.q[1]);
-  T pose_err = T(0);
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const T e = s.jq[l][j] - W.stand[l * 3 + j];
-      pose_err += e * e;
-    }
-  T posture = W.height * at_least(W.height_min - z, T(0)) + W.upright * (T(1) - up_z) +
-              W.pose * (pose_err / T(12));
-  if (W.ceiling > T(0)) posture = posture + W.ceiling_w * at_least(z - W.ceiling, T(0));
-  cost = cost + posture;
-  // fall: roll > 45 deg or pitch > 60 deg
-  const T left_z = Rb[0][2] * Rb[1][0] - Rb[1][2] * Rb[0][0];
-  const bool fall = fabs_(left_z) > T(0.7071067811865476) || Rb[2][2] < T(0.5000000000000001);
-  cost = cost + W.fall * (fall ? T(1) : T(0));
+  cost = cost + posture_cost(W.post, s);
+  cost = cost + W.fall * (fall_mask(Rb) ? T(1) : T(0));
   cost = cost + W.clearance * clearance_cost(s.pb, boxes, W.n_boxes, W.crawl_gap);
-  if (W.gait_weight != T(0)) {
-    T e_q = T(0), e_qd = T(0);
-#pragma unroll
-    for (int l = 0; l < 4; ++l)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const T dq = s.jq[l][j] - r[kOffJP + l * 3 + j];
-        e_q += dq * dq;
-        const T dv = s.jqd[l][j] - r[kOffJV + l * 3 + j];
-        e_qd += dv * dv;
-      }
-    cost = cost + W.gait_weight * (e_q / T(12) + W.gait_vel_weight * (e_qd / T(12)));
-  }
+  if (W.gait_weight != T(0)) cost = cost + W.gait_weight * gait_cost(s, r, W.gait_vel_weight);
   return cost;
 }
 
@@ -173,22 +124,7 @@ __global__ void __launch_bounds__(kBlock)
   for (int i = 0; i < kTaskWidth; ++i) tk[i] = task[scen * kTaskWidth + i];
 
   State<T> s;
-  // the shared start state: pb 3, q 4, vb 3, wb 3, jq 12, jqd 12 (37)
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    s.pb[i] = state[i];
-    s.vb[i] = state[7 + i];
-    s.wb[i] = state[10 + i];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) s.q[i] = state[3 + i];
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      s.jq[l][j] = state[13 + l * 3 + j];
-      s.jqd[l][j] = state[25 + l * 3 + j];
-    }
+  load_state(state, s);
   const T d0x = tk[0] - s.pb[0];
   const T d0y = tk[1] - s.pb[1];
   const T d0 = at_least(fsqrt(d0x * d0x + d0y * d0y), T(1e-8));
@@ -228,10 +164,11 @@ void params_from_host(const double* hp, Params<T>& P, TravParams<T>& W) {
   W.joystick = static_cast<int>(hp[16]);
   W.rot_coef = T(hp[17]);
   W.velocity = T(hp[18]); W.heading = T(hp[19]); W.clearance = T(hp[20]); W.fall = T(hp[21]);
-  W.height = T(hp[22]); W.height_min = T(hp[23]); W.upright = T(hp[24]); W.pose = T(hp[25]);
-  W.ceiling = T(hp[26]); W.ceiling_w = T(hp[27]); W.crawl_gap = T(hp[28]);
+  W.post.height = T(hp[22]); W.post.height_min = T(hp[23]); W.post.upright = T(hp[24]);
+  W.post.pose = T(hp[25]); W.post.ceiling = T(hp[26]); W.post.ceiling_w = T(hp[27]);
+  W.crawl_gap = T(hp[28]);
   W.gait_weight = T(hp[29]); W.gait_vel_weight = T(hp[30]);
-  for (int i = 0; i < 12; ++i) W.stand[i] = T(hp[31 + i]);
+  for (int i = 0; i < 12; ++i) W.post.stand[i] = T(hp[31 + i]);
 }
 
 template <typename T>

@@ -1,19 +1,28 @@
-"""Terrain-traversal (EPMC) MPC rollouts in tile layout.
+"""Terrain-traversal (EPMC) and Chase-Tag (SEPMC) MPC rollouts in tile layout.
 
-Port of the traversal half of lifelike_tpu.solver.rollout_tasks: horizon
-rollouts through the tile-layout physics with box-scene contact, scored by
-the negated playground rewards (joystick / average-speed families,
-reference playground_env.py:479-539) plus dense shaping, posture, fall and
-a soft clearance hinge. The pruned contact scene and the gait reference
-depend only on the scenario and the step, never on the candidate, so they
-are built once per solve and broadcast over the (Bs, L) population.
+Port of lifelike_tpu.solver.rollout_tasks: horizon rollouts through the
+tile-layout physics with box-scene contact, scored by
 
-`rollout_traversal_gait` is the plain version of the CUDA traversal kernel
-(ops.traversal_cuda.rollout_traversal_fused): same function, held against
-it. The batch-leading cost oracles are in costs/traversal.py.
+  * traversal: the negated playground rewards (joystick / average-speed
+    families, reference playground_env.py:479-539) plus dense shaping,
+    posture, fall and a soft clearance hinge;
+  * chase: chaser distance + heading, escapee evasion + flag distance
+    (reference chase_tag_game_env.py:640-697), with the opponent following
+    a precomputed plan trajectory (`rollout_plan`) — alternating best
+    response between the two robots' solvers supplies the coupling.
+
+The contact scene, the gait reference and the opponent's plan depend only
+on the scenario and the step, never on the candidate, so they are built
+once per solve and broadcast over the (Bs, L) population.
+
+`rollout_traversal_gait`, `rollout_chase_gait` and `rollout_plan_gait` are
+the plain versions of the CUDA kernels of ops.traversal_cuda (K2, K4, K3):
+same functions, held against them. The batch-leading cost oracles are in
+costs/traversal.py and costs/chase.py.
 """
 import torch
 
+from lifelike_tpu_torch.costs.chase import ChaseWeights
 from lifelike_tpu_torch.costs.traversal import STAND_POSE, TraversalWeights
 from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.physics import engine_tl
@@ -166,3 +175,110 @@ def rollout_traversal_gait(c: B.TLConstants, params, state: B.TLState, controls,
             cost = cost + gait_weight * gait
         total = cost if total is None else total + cost
     return total, s
+
+
+# ----------------------------------------------------------------- chase
+
+
+def chaser_cost_tl(s: B.TLState, opp_pos, w: ChaseWeights = ChaseWeights()):
+    """costs.chase.chaser_cost in tile layout: distance + heading alignment
+    to the opponent + fall. opp_pos (3, Bs, L)-broadcastable."""
+    diff = opp_pos[:2] - s.base_pos[:2]
+    d = torch.sqrt(torch.sum(diff * diff, dim=0))
+    dir_w = diff / d[None].clamp_min(1e-8)
+    yaw = yaw_tl(s.base_orn)
+    align = torch.cos(yaw) * dir_w[0] + torch.sin(yaw) * dir_w[1]
+    r_rot = torch.exp((align - 1.0) * 2.0)
+    cost = w.distance * d + w.heading * (1.0 - r_rot)
+    return cost + w.fall * fall_mask_tl(s).to(cost.dtype)
+
+
+def escapee_cost_tl(s: B.TLState, opp_pos, flag_pos, flag_visible=1.0,
+                    w: ChaseWeights = ChaseWeights()):
+    """costs.chase.escapee_cost in tile layout: evade the chaser while
+    closing on the (visible) flag, + fall."""
+    d_opp = torch.sqrt(torch.sum((opp_pos[:2] - s.base_pos[:2]) ** 2, dim=0))
+    d_flag = torch.sqrt(torch.sum((flag_pos[:2] - s.base_pos[:2]) ** 2, dim=0))
+    cost = -w.distance * d_opp + w.distance * flag_visible * d_flag
+    return cost + w.fall * fall_mask_tl(s).to(cost.dtype)
+
+
+def _chase_stage_cost(s, ts, opp_t, fp, chaser_m, weights):
+    """Role-mixed stage cost: chaser_m in {0, 1} selects the role by masked
+    arithmetic, so one solve serves both roles without a host branch."""
+    c_ch = chaser_cost_tl(s, opp_t, weights)
+    c_es = escapee_cost_tl(s, opp_t, fp, 1.0, weights)
+    cost = chaser_m * c_ch + (1.0 - chaser_m) * c_es
+    cost = cost + posture_cost_tl(s, weights)
+    return cost + 0.5 * clearance_cost_tl(ts, s.base_pos)
+
+
+def _role_mask(is_chaser, like):
+    return torch.as_tensor(is_chaser, device=like.device).to(like.dtype)
+
+
+def rollout_chase(c: B.TLConstants, params, state: B.TLState, controls, ts: engine_tl.TLScene,
+                  opp_traj, flag_pos, is_chaser, weights: ChaseWeights = ChaseWeights()):
+    """Chase-Tag horizon rollout for ONE robot against a fixed opponent plan.
+
+    controls: (H, 4, 3, Bs, L) deltas on the initial pose; opp_traj
+    (H, 3, 1, 1) opponent base positions (precomputed once per solve);
+    flag_pos (3,) or (3, Bs, L); is_chaser: bool / 0-1 scalar or 0-d tensor.
+    Returns (total_cost (Bs, L), final TLState)."""
+    q0 = state.joint_pos
+    fp = _target_tl(flag_pos)
+    chaser_m = _role_mask(is_chaser, state.base_pos)
+    s, total = state, None
+    for t in range(controls.shape[0]):
+        s = engine_tl.control_step(c, params, s, q0 + controls[t], scene=ts)
+        cost = _chase_stage_cost(s, ts, opp_traj[t], fp, chaser_m, weights)
+        total = cost if total is None else total + cost
+    return total, s
+
+
+def rollout_chase_gait(c: B.TLConstants, params, state: B.TLState, controls,
+                       ts: engine_tl.TLScene, ref, opp_traj, flag_pos, is_chaser,
+                       weights: ChaseWeights = ChaseWeights(), gait_weight=1.0,
+                       gait_vel_weight=0.02):
+    """Chase rollout with the walk-clip gait prior (see
+    rollout_traversal_gait): controls are deltas on ref.target_joint, and the
+    gait term is skipped when gait_weight == 0, as in the CUDA kernel.
+    Returns (total_cost (Bs, L), final TLState)."""
+    fp = _target_tl(flag_pos)
+    chaser_m = _role_mask(is_chaser, state.base_pos)
+    s, total = state, None
+    for t in range(controls.shape[0]):
+        s = engine_tl.control_step(c, params, s, ref.target_joint[t] + controls[t], scene=ts)
+        cost = _chase_stage_cost(s, ts, opp_traj[t], fp, chaser_m, weights)
+        if gait_weight != 0.0:
+            gait = torch.mean((s.joint_pos - ref.joint_pos[t]) ** 2, dim=(0, 1))
+            gait = gait + gait_vel_weight * torch.mean((s.joint_vel - ref.joint_vel[t]) ** 2,
+                                                       dim=(0, 1))
+            cost = cost + gait_weight * gait
+        total = cost if total is None else total + cost
+    return total, s
+
+
+def rollout_plan_gait(c: B.TLConstants, params, state: B.TLState, u_plan,
+                      ts: engine_tl.TLScene, ref):
+    """rollout_plan with the gait-prior control convention (deltas on the
+    clip joints). u_plan (H, 4, 3) or (H, 4, 3, Bs, L); returns the base
+    positions (H, 3, Bs, L)."""
+    u_seq = u_plan[..., None, None] if u_plan.dim() == 3 else u_plan
+    s, traj = state, []
+    for t in range(u_seq.shape[0]):
+        s = engine_tl.control_step(c, params, s, ref.target_joint[t] + u_seq[t], scene=ts)
+        traj.append(s.base_pos)
+    return torch.stack(traj)
+
+
+def rollout_plan(c: B.TLConstants, params, state: B.TLState, u_plan, ts: engine_tl.TLScene):
+    """Roll ONE control plan (H, 4, 3) for a single scenario (batch (1, 1))
+    and return its base-position trajectory (H, 3, 1, 1) — the opponent's
+    hoisted path for rollout_chase."""
+    q0 = state.joint_pos
+    s, traj = state, []
+    for t in range(u_plan.shape[0]):
+        s = engine_tl.control_step(c, params, s, q0 + u_plan[t][..., None, None], scene=ts)
+        traj.append(s.base_pos)
+    return torch.stack(traj)

@@ -110,7 +110,7 @@ def _check_profile_mpc_cpu():
 
 
 def _check_run_mpc_without_device_cpu_raises():
-    for task in ("pmc", "epmc"):
+    for task in ("pmc", "epmc", "sepmc"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_mpc.main([f"--task={task}", "--steps=1"])
 
@@ -139,6 +139,9 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
+for m in ("envs.chase_tag", "scene.arena_gen", "scene.arena_fixed", "costs.chase",
+          "ops.traversal_cuda", "solver.mpc_tasks"):
+    assert "lifelike_tpu_torch." + m in names, m
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)

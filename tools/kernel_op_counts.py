@@ -1,0 +1,144 @@
+#!/usr/bin/env python
+"""Scalar-operation counts per candidate per control step of the fused
+rollout kernels, the operation term of their roofline bounds.
+
+The count is tools/sol_report.py's method: trace one
+lifelike_tpu.ops.scalar_phys.control_step at (1, 1) tiles and count every
+arithmetic primitive of the jaxpr as one operation per lane. With `boxes`
+(K rows of shape (K, 1, 1)) the box-contact path is traced too, and each
+primitive on a (K, 1, 1) value counts K operations. The stage costs are
+counted the same way from the Pallas kernels' own cost code
+(ops/traversal_pallas.py). Runs on the CPU in about a minute and a half:
+
+  JAX_PLATFORMS=cpu python tools/kernel_op_counts.py
+
+Prints one JSON line per configuration: the physics count, the stage-cost
+count and their sum.
+"""
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+ARITH = {
+    "add", "sub", "mul", "div", "sqrt", "rsqrt", "exp", "tanh", "log",
+    "sin", "cos", "abs", "neg", "max", "min", "integer_pow", "pow",
+    "select_n", "lt", "gt", "ge", "le", "clamp", "sign", "logistic",
+}  # tools/sol_report.py's set
+
+
+def _count(fn, *args):
+    n = 0
+    for eqn in jax.make_jaxpr(fn)(*args).jaxpr.eqns:
+        if eqn.primitive.name in ARITH:
+            for ov in eqn.outvars:
+                n += int(np.prod(ov.aval.shape)) if ov.aval.shape else 1
+    return n
+
+
+def _state():
+    from lifelike_tpu.ops import scalar_phys as SP
+
+    z = jnp.zeros((1, 1), jnp.float32)
+    return SP.State(
+        pb=(z, z, z + 0.33), q=(z, z, z, z + 1.0), vb=(z, z, z), wb=(z, z, z),
+        jq=tuple((z, z + 0.5, z + 1.5) for _ in range(4)),
+        jqd=tuple((z, z, z) for _ in range(4)),
+    )
+
+
+def _boxes(k):
+    return tuple(jnp.zeros((k, 1, 1), jnp.float32) for _ in range(7))
+
+
+def physics_ops(substeps, mass_freeze, n_boxes):
+    from lifelike_tpu.ops import scalar_phys as SP
+    from lifelike_tpu.physics import engine
+    from lifelike_tpu.robot.model import build_max_model
+
+    sm = SP.build_scalar_model(build_max_model())
+    params = engine.PhysicsParams(kd=1.0, max_tau=16.0, substeps=substeps,
+                                  mass_freeze=mass_freeze)
+    target = tuple((z, z + 0.5, z + 1.5) for z in [jnp.zeros((1, 1), jnp.float32)] * 4)
+    bx = _boxes(n_boxes) if n_boxes else None
+    return _count(lambda s: SP.control_step(sm, params, s, target, boxes=bx), _state())
+
+
+def traversal_stage_ops(n_boxes):
+    """The joystick traversal stage cost of _trav_kernel (no gait term)."""
+    from lifelike_tpu.costs.traversal import TraversalWeights
+    from lifelike_tpu.ops import traversal_pallas as TP
+
+    w = TraversalWeights()
+    bx = _boxes(n_boxes)
+
+    def stage(s, tp, tspd):
+        d, spd, spd_sg, align = TP._direction_terms(s, tp)
+        r_rot = jnp.exp((align - 1.0) * 5.0)
+        r_vel = jnp.exp(-jnp.abs(spd - tspd))
+        cost = 1.0 - r_vel * r_rot
+        cost = cost + w.velocity * jnp.abs(spd_sg - tspd) / (1.0 + tspd)
+        cost = cost + w.heading * (1.0 - align)
+        cost = cost + TP._posture_cost(s, w)
+        cost = cost + w.fall * TP._fall_mask(s).astype(cost.dtype)
+        return cost + w.clearance * TP._clearance_cost(s, bx, w.crawl_gap)
+
+    z = jnp.zeros((1, 1), jnp.float32)
+    return _count(stage, _state(), (z + 3.0, z), z + 1.5)
+
+
+def chase_stage_ops(n_boxes):
+    """The chase stage cost of _chase_kernel (one role mix, no gait term)."""
+    from lifelike_tpu.costs.chase import ChaseWeights
+    from lifelike_tpu.ops import scalar_phys as SP
+    from lifelike_tpu.ops import traversal_pallas as TP
+
+    w = ChaseWeights()
+    bx = _boxes(n_boxes)
+
+    def stage(s, opp, fp, chaser_m):
+        dx = opp[0] - s.pb[0]
+        dy = opp[1] - s.pb[1]
+        d_opp = jnp.sqrt(dx * dx + dy * dy)
+        inv = 1.0 / jnp.maximum(d_opp, 1e-8)
+        m = SP.quat_to_mat(s.q)
+        fx, fy = m[0][0], m[1][0]
+        fnorm = jnp.maximum(jnp.sqrt(fx * fx + fy * fy), 1e-8)
+        align = (fx * dx * inv + fy * dy * inv) / fnorm
+        r_rot = jnp.exp((align - 1.0) * 2.0)
+        c_ch = w.distance * d_opp + w.heading * (1.0 - r_rot)
+        fdx = fp[0] - s.pb[0]
+        fdy = fp[1] - s.pb[1]
+        d_flag = jnp.sqrt(fdx * fdx + fdy * fdy)
+        c_es = -w.distance * d_opp + w.distance * d_flag
+        cost = chaser_m * c_ch + (1.0 - chaser_m) * c_es
+        cost = cost + w.fall * TP._fall_mask(s).astype(cost.dtype)
+        cost = cost + TP._posture_cost(s, w)
+        return cost + 0.5 * TP._clearance_cost(s, bx)
+
+    z = jnp.zeros((1, 1), jnp.float32)
+    return _count(stage, _state(), (z + 1.0, z), (z, z + 2.0), z + 1.0)
+
+
+def main():
+    rows = [
+        ("K1 plane, substeps 10, mass_freeze 10", physics_ops(10, 10, 0), 0),
+        ("K2 8 boxes, substeps 10, mass_freeze 10", physics_ops(10, 10, 8),
+         traversal_stage_ops(8)),
+    ]
+    for sub, mf in ((10, 10), (20, 1)):
+        phys = physics_ops(sub, mf, 4)
+        rows.append((f"K3 4 boxes, substeps {sub}, mass_freeze {mf}", phys, 0))
+        rows.append((f"K4 4 boxes, substeps {sub}, mass_freeze {mf}", phys, chase_stage_ops(4)))
+    for name, phys, stage in rows:
+        print(json.dumps({"config": name, "physics_ops": phys, "stage_ops": stage,
+                          "total": phys + stage}))
+
+
+if __name__ == "__main__":
+    main()
