@@ -6,11 +6,12 @@
 Phases, each reported on its own line; any failure exits non-zero before the
 result line:
   1. the device (torch name, nvidia-smi name and power limit);
-  2. the build of the four CUDA kernels (one nvcc per source, started
+  2. the build of the five CUDA kernels (one nvcc per source, started
      together; wall time, ptxas registers/spills, runtime registers, local
      bytes and resident blocks per SM): K1 the PMC tracking rollout, K2 the
      EPMC traversal rollout with box contact, K3 the SEPMC opponent plan
-     rollout, K4 the SEPMC chase rollout;
+     rollout, K4 the SEPMC chase rollout, K5 the hard-contact plant's PGS
+     sweep (float32 and float64, 60 and 129 rows);
   3. K1 vs its plain PyTorch version, float32, at the JAX kernel test's
      shape (H 3, substeps 2, mass_freeze 1), population 4096, rtol=atol=2e-4;
   4. K1 vs plain version, float64, rtol=atol=1e-6, at the headline solve
@@ -36,6 +37,19 @@ result line:
      prior, chaser) and at the closed loop's substeps 20 / mass_freeze 1
      (constant reference, gait_weight 0, escapee); four scenario blocks
      (S = 4) with their own opponent trajectories, flags and roles;
+  8a. K5 vs its plain version on the card: the reference Pallas test's
+     random system (B 128, 60 rows, 4 iterations), its walking substep
+     (B 128, 3 iterations) and the 129-row hurdle system with a per-element
+     mu at B 256 and B 1 (10 iterations); float64 at 1e-9, float32 at
+     1e-5 (on the hurdle system at B 256, whose own rounding moves the
+     plain sweep by more, at twice the plain version's distance from the
+     float64 sweep plus 1e-5);
+  8b. the port's impulse.control_step through K5 against the golden traces
+     (lifelike_tpu_torch/data/oracle_traces, H 50): float64 max |dq| < 1e-5
+     on walk, run, stand and hurdle; float32 over 64 starts per trace 1e-6
+     rad apart (the trace's own first), the first step < 1e-5 and the median
+     H 50 error under the JAX tests' ceilings (walk, run 1e-2, stand 2e-2,
+     hurdle 6e-3);
   8. the PMC closed loop through bin/run_mpc (population 4096, H 50, 1 MPPI
      iteration, default plant) for STEPS control steps, with K1's launch
      count checked against solves x iterations;
@@ -47,12 +61,19 @@ result line:
      and ChaseTagConfig plant) for CHASE_STEPS control steps, K3's launches
      checked against solves x rounds x 2 robots and K4's against that x
      iterations;
+ 10b. the EPMC closed loop of 9 on the hard-contact plant
+     (PlaygroundConfig(hard_contact=True)): K2's launches = STEPS, K5's =
+     STEPS x 10 substeps; the plant's time per control step;
  11. timings at the headline solve shapes (float32, mass_freeze 10; the
      chase kernels at substeps 10 on the 4-wall arena as bench.py's
      bench_sepmc): each kernel, its plain version and its bound on this
      card, K3 at S = 1 and S = 16; then each kernel at the closed loops'
-     setting (mass_freeze 1; the chase kernels at substeps 20);
-then one JSON line listing the four kernels, the nvidia-smi line, and last
+     setting (mass_freeze 1; the chase kernels at substeps 20); K5 (device
+     time from torch.profiler, and the wrapper call) at bench.py
+     bench_impulse's shape (B 256 standing robots, 60 rows, 10 iterations)
+     and for one robot on the 129-row hurdle system, and the whole
+     hard-contact control step at bench_impulse's shape;
+then one JSON line listing the five kernels, the nvidia-smi line, and last
 the result line {"ok": true, "device": {...}}. Needs one card; builds the
 kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
 non-zero without a result when no card (or no lifelike_tpu_torch beside
@@ -83,6 +104,11 @@ SWEEP_S = 16  # scenarios of bench.py's bench_sweep
 # (substeps 20, mass_freeze 1): K3 297,160, K4 297,395.
 OPS_PER_LANE_STEP = {"K1": 52286, "K2": 155546 + 312, "K3": 105146, "K4": 105146 + 235}
 OPS_PER_LANE_STEP_CHASE_PLANT = {"K3": 297160, "K4": 297160 + 235}
+# K5: operations of one PGS sweep (one iteration) of one element, printed
+# by tools/kernel_op_counts.py (the arithmetic of
+# lifelike_tpu.physics.impulse._pgs, a length-18 dot as 35 operations).
+OPS_PER_SWEEP = {60: 4728, 129: 10248}
+IMPULSE_B, IMPULSE_SUBSTEPS = 256, 10  # bench.py bench_impulse's shape
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 KERNELS = {
@@ -98,6 +124,9 @@ KERNELS = {
     "K4": dict(name="rollout_chase_fused (K4 with K0 and box contact inlined)",
                source="lifelike_tpu_torch/csrc/rollout_chase.cu",
                replaces="lifelike_tpu/ops/traversal_pallas.py:486"),
+    "K5": dict(name="pgs_sweep (K5, the hard-contact plant's PGS sweep)",
+               source="lifelike_tpu_torch/csrc/pgs_sweep.cu",
+               replaces="lifelike_tpu/ops/pgs_pallas.py:65"),
 }
 
 
@@ -547,12 +576,300 @@ def compare_chase_scenarios(tol):
                        f"{CHASE_POP // 4}", got, want, tol)
 
 
-def closed_loop(task, launches_of, log_prefix):
+def pgs_random_system(dtype, device="cuda"):
+    """The reference Pallas test's random system (tests/test_impulse_contact.py
+    test_pallas_pgs_matches_xla_sweep: seed 0, B 128, 60 rows, SPD M^-1,
+    30 % of the rows inactive, scalar mu 0.5, 4 iterations)."""
+    import numpy as np
+    import torch
+
+    from lifelike_tpu_torch.physics import impulse
+
+    rng = np.random.default_rng(0)
+    n, R, NV = 128, impulse.N_ROWS, impulse.NV
+    A = rng.normal(size=(NV, NV)) * 0.3
+    Minv = A @ A.T + np.eye(NV)
+    T = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    J = T(rng.normal(size=(n, R, NV)) * 0.5)
+    MinvJT = J @ T(Minv)
+    d = (J * MinvJT).sum(-1)
+    v = T(rng.normal(size=(n, NV)))
+    b = T(rng.normal(size=(n, R)) * 0.1)
+    active = T(rng.uniform(size=(n, R)) > 0.3) > 0
+    hi = torch.where(active, float("inf"), 0.0).to(dtype)
+    return [v, torch.zeros_like(b), J, MinvJT, d, b, torch.zeros_like(b), hi, 0.5], \
+        impulse.friction_map(False, device).mu_idx, 4
+
+
+def impulse_state(name, dtype, batch=None, seed=0, device="cuda"):
+    """A golden trace's start state (and scene, targets) for the impulse
+    plant; with `batch`, that many copies, perturbed (1 mm base, 0.01 rad
+    joints, 0.1 rad/s joint velocities) from a seeded generator."""
+    import numpy as np
+    import torch
+
+    from lifelike_tpu_torch.physics import oracle_traces
+
+    tr = oracle_traces.load(name, dtype=dtype, device=device)
+    if batch is None:
+        return tr.init, tr.scene, tr.targets
+    rng = np.random.default_rng(seed)
+    T = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    s = type(tr.init)(*(x.expand((batch,) + tuple(x.shape)).clone() for x in tr.init))
+    s = s._replace(base_pos=s.base_pos + T(1e-3 * rng.standard_normal((batch, 3))),
+                   joint_pos=s.joint_pos + T(0.01 * rng.standard_normal((batch, 12))),
+                   joint_vel=s.joint_vel + T(0.1 * rng.standard_normal((batch, 12))))
+    return s, tr.scene, tr.targets
+
+
+def pgs_systems(dtype, seed=0):
+    """(label, sweep arguments, mu_idx, iterations, batch) of phase 8a: the
+    random system; the walking substep of test_pallas_pgs_full_substep_parity
+    (the walk trace's start x 128, zero warm start, its first target, 3
+    iterations); the 129-row hurdle system (the hurdle trace's start, box
+    rows active) with a per-element mu at B 256 and for one robot (10
+    iterations, warm-started by one control step)."""
+    import numpy as np
+    import torch
+
+    from lifelike_tpu_torch.physics import impulse
+    from lifelike_tpu_torch.robot.model import build_max_model
+
+    model = build_max_model()
+    args, idx, iters = pgs_random_system(dtype)
+    out = [("random SPD system B 128 rows 60", args, idx, iters, 128)]
+    walk, _, tgt = impulse_state("walk", dtype)
+    walk = type(walk)(*(x.expand((128,) + tuple(x.shape)) for x in walk))
+    p = impulse.ImpulseParams(iterations=3, substeps=1)
+    *system, idx = impulse.sweep_system(
+        model, p, walk, impulse.init_lam((128,), dtype, device="cuda"), tgt[0])
+    out.append(("walking substep B 128 rows 60", system + [p.mu], idx, 3, 128))
+    rng = np.random.default_rng(seed)
+    for n in (256, None):
+        s, scene, tgt = impulse_state("hurdle", dtype, n, seed)
+        batch = (n,) if n else ()
+        mu = torch.as_tensor(rng.uniform(0.4, 3.0, batch), dtype=dtype, device="cuda")
+        p = impulse.ImpulseParams(mu=mu)
+        lam = impulse.init_lam(batch, dtype, scene=scene, device="cuda")
+        s, lam = impulse.control_step(model, p, s, lam, tgt[0], scene=scene)
+        *system, idx = impulse.sweep_system(model, p, s, lam, tgt[1], scene=scene)
+        n_box = int(torch.isinf(system[7][..., 24:93:3]).sum())
+        out.append((f"hurdle system B {n or 1} rows 129, per-element mu, {n_box} box contacts "
+                    "active", system + [mu], idx, 10, n or 1))
+    return out
+
+
+def compare_pgs(dtype, tol):
+    """Phase 8a: K5 vs pgs_sweep_plain on every system of pgs_systems;
+    returns the largest |kernel - plain| over v and lam.
+
+    Every system: |kernel - plain| <= tol, with one exception. On the
+    float32 hurdle system at B 256 (1024 box contacts, 10 sweeps of 129
+    rows) the plain version itself moves by far more than 1e-5 when its
+    rounding changes, so there the kernel is held to that rounding floor:
+    its distance from the float64 sweep of the same inputs may be at most
+    twice the plain version's, plus tol. The one-robot hurdle system, the
+    shape the hard-contact closed loop launches, keeps the plain gate; its
+    plain version's distance from float64 is printed beside it."""
+    import torch
+
+    from lifelike_tpu_torch.ops import pgs_cuda
+
+    worst = 0.0
+    for label, args, idx, iters, batch in pgs_systems(dtype):
+        got = pgs_cuda.pgs_sweep(*args, idx, iterations=iters)
+        want = pgs_cuda.pgs_sweep_plain(*args, idx, iterations=iters)
+        torch.cuda.synchronize()
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        finite = all(bool(torch.isfinite(x).all()) for x in got + want)
+        note, ok = "", max(errs) <= tol
+        if dtype == torch.float32 and "hurdle" in label:
+            exact = pgs_cuda.pgs_sweep_plain(
+                *(x.double() if torch.is_tensor(x) else x for x in args), idx, iterations=iters)
+            floor = max(float((w.double() - e).abs().max()) for w, e in zip(want, exact))
+            k_err = max(float((g.double() - e).abs().max()) for g, e in zip(got, exact))
+            note = f" | vs the float64 sweep: kernel {k_err:.3e}, plain {floor:.3e}"
+            if batch > 1:
+                ok = k_err <= 2.0 * floor + tol
+                note += f" (gate: kernel <= 2 x plain + {tol:g})"
+        say(f"check K5 {str(dtype).replace('torch.', '')} {label}, {iters} iterations: "
+            f"max|kernel-plain| v {errs[0]:.3e} lam {errs[1]:.3e} (tol {tol:g}){note} | "
+            f"max|v| {float(want[0].abs().max()):.4f} max|lam| {float(want[1].abs().max()):.4f}")
+        if not finite:
+            raise SystemExit(f"K5 {label}: non-finite output")
+        if not ok:
+            raise SystemExit(f"K5 {label}: kernel disagrees with its plain version")
+        worst = max(worst, *errs)
+    return worst
+
+
+TRACE_F32_LIMITS = {"walk": 1e-2, "run": 1e-2, "stand": 2e-2, "hurdle": 6e-3}
+TRACE_MEMBERS = 64  # float32: starts per trace (the trace's own + perturbed)
+
+
+def trace_errors(dtype, members=1, noise=1e-6, seed=0):
+    """Phase 8b: the port's impulse.control_step (K5 on the card) over the
+    golden traces' H 50 control steps, walk, run and stand batched with
+    their own targets, hurdle with its scene. members > 1: each trace from
+    its own start (member 0) and members - 1 starts whose joint positions
+    are moved by `noise` rad N(0, 1) draws (oracle_traces.start_shifts, the
+    starts tools/trace_f32_spread.py steps through the JAX reference).
+    Returns {name: max |joint_pos - trace| per step and member, (H,
+    members)} as numpy."""
+    import numpy as np
+    import torch
+
+    from lifelike_tpu_torch.physics import impulse, oracle_traces
+    from lifelike_tpu_torch.robot.model import build_max_model
+
+    model = build_max_model()
+    p = impulse.ImpulseParams()
+    shifts = oracle_traces.start_shifts(members, noise, seed)
+    out = {}
+    for names in oracle_traces.GROUPS:
+        trs = [oracle_traces.load(n, dtype=dtype, device="cuda") for n in names]
+        s = type(trs[0].init)(*(torch.stack(x).repeat_interleave(members, 0)
+                                for x in zip(*(t.init for t in trs))))
+        shift = np.concatenate([shifts[n] for n in names])
+        s = s._replace(joint_pos=(s.joint_pos.double() + torch.as_tensor(
+            shift, device="cuda")).to(dtype))
+        targets = torch.stack([t.targets for t in trs], dim=1).repeat_interleave(members, 1)
+        want = np.stack([t.joint_pos for t in trs], axis=1).repeat(members, 1)
+        scene = trs[0].scene
+        lam = impulse.init_lam(s.base_pos.shape[:-1], dtype, scene=scene, device="cuda")
+        errs = []
+        for t in range(targets.shape[0]):
+            s, lam = impulse.control_step(model, p, s, lam, targets[t], scene=scene)
+            errs.append(np.abs(s.joint_pos.double().cpu().numpy() - want[t]).max(-1))
+        errs = np.stack(errs).reshape(-1, len(names), members)
+        out.update({n: errs[:, k] for k, n in enumerate(names)})
+    return out
+
+
+def check_traces():
+    """Phase 8b's criteria. float64, each trace from its own start: max
+    error < 1e-5 over H 50. float32, TRACE_MEMBERS starts per trace: the
+    trace's own start within 1e-5 after the first step, and the median over
+    the starts of the H 50 max error under the JAX tests' ceiling. (Over 50
+    steps float32 rounding is amplified chaotically through contact: starts
+    1e-6 rad apart end up 2e-3 to 2e-2 rad from the walk trace, so one run's
+    error is one draw from that spread; its own value is printed. The JAX
+    reference spreads alike from the same starts: tools/trace_f32_spread.py
+    measures it on the CPU, e.g. walk median 8.786e-03 with 12 of 64 starts
+    at or over its 1e-2 ceiling.)"""
+    import numpy as np
+    import torch
+
+    for dtype, members in ((torch.float64, 1), (torch.float32, TRACE_MEMBERS)):
+        name = str(dtype).replace("torch.", "")
+        for trace, e in trace_errors(dtype, members).items():
+            own, peak = e[:, 0], e.max(0)
+            med = float(np.median(peak))
+            limit = 1e-5 if members == 1 else TRACE_F32_LIMITS[trace]
+            line = (f"trace {trace} {name} H {len(own)}: max|dq| at steps 1/10/25/50 "
+                    f"{own[0]:.3e} {own[9]:.3e} {own[24]:.3e} {own[49]:.3e} | max {own.max():.3e}")
+            if members > 1:
+                q = np.quantile(peak, [0.0, 0.25, 0.5, 0.75, 1.0])
+                line += (f" | {members} starts (1e-6 rad apart): H 50 max quantiles 0/25/50/75/100 "
+                         + " ".join(f"{x:.3e}" for x in q)
+                         + f", {int((peak >= limit).sum())} at or over {limit:g} | gate: median "
+                         f"< {limit:g}, first step < 1e-05")
+                ok = med < limit and own[0] < 1e-5
+            else:
+                line += f" (limit {limit:g})"
+                ok = own.max() < limit
+            say(line)
+            if not np.isfinite(e).all() or not ok:
+                raise SystemExit(f"trace {trace} {name}: the plant misses the criterion")
+
+
+def device_ms(fn, kernel_name, reps=20):
+    """Device time per call of the kernels whose name holds `kernel_name`
+    (torch.profiler's CUDA activity), fn called `reps` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+             for e in prof.key_averages() if kernel_name in e.key)
+    if us <= 0.0:
+        raise SystemExit(f"torch.profiler recorded no device time for {kernel_name}")
+    return us / 1e3 / reps
+
+
+def time_pgs():
+    """Phase 11 for K5: the kernel, its plain version and its bound at
+    bench.py bench_impulse's shape (B 256 standing robots, 60 rows, 10
+    iterations, float32, the system of a warm-started substep) and for one
+    robot on the 129-row hurdle system; then the whole hard-contact control
+    step at bench_impulse's shape and K5's share of it. Returns the K5 row
+    of the kernels line."""
+    import torch
+
+    from lifelike_tpu_torch.ops import pgs_cuda
+    from lifelike_tpu_torch.physics import impulse
+    from lifelike_tpu_torch.physics.dynamics import RobotState
+    from lifelike_tpu_torch.robot.model import build_max_model
+
+    dtype, n = torch.float32, IMPULSE_B
+    model = build_max_model()
+    T = lambda x: torch.as_tensor(x, dtype=dtype, device="cuda")
+    stand = T([-0.028, -0.779, 1.687] * 4)
+    s = RobotState(base_pos=T([0.0, 0.0, 0.33]).expand(n, 3),
+                   base_orn=T([0.0, 0.0, 0.0, 1.0]).expand(n, 4),
+                   base_lin_vel=T([0.0] * 3).expand(n, 3), base_ang_vel=T([0.0] * 3).expand(n, 3),
+                   joint_pos=stand.expand(n, 12), joint_vel=T([0.0] * 12).expand(n, 12))
+    p = impulse.ImpulseParams(substeps=IMPULSE_SUBSTEPS)
+    lam = impulse.init_lam((n,), dtype, device="cuda")
+    s1, lam1 = impulse.control_step(model, p, s, lam, stand)
+    hurdle, scene, tgt = impulse_state("hurdle", dtype)
+    lam_h = impulse.init_lam((), dtype, scene=scene, device="cuda")
+    cases = [(f"B {n} rows 60 (bench_impulse, standing)",
+              impulse.sweep_system(model, p, s1, lam1, stand), n),
+             ("B 1 rows 129 (the hurdle trace's start)",
+              impulse.sweep_system(model, p, hurdle, lam_h, tgt[0], scene=scene), 1)]
+    rows = {}
+    for label, (*system, idx), lanes in cases:
+        r, it = len(idx), p.iterations
+        call = lambda: pgs_cuda.pgs_sweep(*system, p.mu, idx, iterations=it)
+        wrapper_ms = cuda_ms(call, reps=20, warmup=3)
+        kernel_ms = device_ms(call, "pgs_sweep_kernel")
+        plain_ms = cuda_ms(lambda: pgs_cuda.pgs_sweep_plain(*system, p.mu, idx, iterations=it),
+                           reps=1, warmup=1)
+        ops = OPS_PER_SWEEP[r] * it * lanes
+        # each input read once, each output written once: v, lam0, J, MinvJT,
+        # d, b, lo, hi, mu; mu_idx (int32); v and lam out
+        nbytes = 4 * lanes * (2 * (18 + r) + 2 * r * 18 + 4 * r + 1) + 4 * r
+        bound_ms, by, ops_ms, bytes_ms = bound(ops, nbytes)
+        say(f"timing K5 f32 {label}, {it} iterations: kernel {kernel_ms:.4f} ms (device time, "
+            f"torch.profiler) | wrapper call {wrapper_ms:.4f} ms (CUDA events) | plain "
+            f"{plain_ms:.1f} ms | bound {bound_ms:.6f} ms ({ops:.4e} ops / 67 TFLOP/s = "
+            f"{ops_ms:.6f} ms; {nbytes} B / 3.35 TB/s = {bytes_ms:.6f} ms, bound by {by}) | "
+            f"kernel at {100 * bound_ms / kernel_ms:.4f}% of bound | library: none")
+        rows[lanes] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                           library_ms=None)
+    step_ms = cuda_ms(lambda: impulse.control_step(model, p, s, lam, stand), reps=5, warmup=1)
+    share = IMPULSE_SUBSTEPS * rows[n]["ms"] / step_ms
+    say(f"timing hard-contact control step f32 B {n} substeps {IMPULSE_SUBSTEPS} (bench_impulse, "
+        f"standing): {step_ms:.3f} ms per control step (CUDA events) | K5 device time "
+        f"{IMPULSE_SUBSTEPS} x {rows[n]['ms']:.4f} ms = {100 * share:.1f}% of it")
+    return rows[n]
+
+
+def closed_loop(task, launches_of, log_prefix, hard_contact=False):
     """The control steps of run_mpc --task=<task> at the headline widths
     (STEPS; CHASE_STEPS at population CHASE_POP per robot for sepmc), with
     every kernel count set to 0 first; returns (run_mpc's dict, launches per
-    kernel in this run)."""
+    kernel in this run). hard_contact (epmc): the playground steps on the
+    impulse (PGS) plant, PlaygroundConfig(hard_contact=True)."""
     from lifelike_tpu_torch.bin import run_mpc
+    from lifelike_tpu_torch.envs import playground
+    from lifelike_tpu_torch.scene import playground_gen
 
     for k in launches_of:
         k.launches = 0
@@ -565,7 +882,11 @@ def closed_loop(task, launches_of, log_prefix):
         argv.append("--best_response=1")
     args = run_mpc.parse_args(argv)
     run = {"pmc": run_mpc.run_pmc, "epmc": run_mpc.run_epmc, "sepmc": run_mpc.run_sepmc}[task]
-    out = run(args, log=lambda m: say(f"{log_prefix}: " + m))
+    kw = {}
+    if hard_contact:
+        kw["env_cfg"] = playground.PlaygroundConfig(
+            scene=playground_gen.PlaygroundConfig(element_id=args.element_id), hard_contact=True)
+    out = run(args, log=lambda m: say(f"{log_prefix}: " + m), **kw)
     launches = [k.launches for k in launches_of]
     rewards = out["step_rewards"]
     flat = [x for r in rewards for x in (r if isinstance(r, list) else [r])]
@@ -576,6 +897,9 @@ def closed_loop(task, launches_of, log_prefix):
     if task == "epmc":
         extra = (f" | fall at steps {[i for i, f in enumerate(out['falls']) if f]}, reached at "
                  f"steps {[i for i, r in enumerate(out['reached']) if r]}")
+        p_ms = [1e3 * t for t in out["t_plant"][1:]]
+        extra += (f" | plant step after warm-up p50 {statistics.median(p_ms):.3f} ms max "
+                  f"{max(p_ms):.3f} ms")
     if task == "sepmc":
         extra = f" | games {out['games']}, final distance {out['final_dist']:.3f} m"
     say(f"{log_prefix}: {len(rewards)} steps, episode ends at {out['episode_ends']}{extra}, "
@@ -673,7 +997,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; needs one NVIDIA GPU",
               file=sys.stderr)
         return 2
-    from lifelike_tpu_torch.ops import cuda_build, rollout_cuda, traversal_cuda
+    from lifelike_tpu_torch.ops import cuda_build, pgs_cuda, rollout_cuda, traversal_cuda
     from lifelike_tpu_torch.solver import rollout_tl
 
     t_start = time.perf_counter()
@@ -686,7 +1010,8 @@ def main():
     # 2. build: one nvcc per kernel source, all started together
     tc = traversal_cuda
     kernels = {"K1": (rollout_cuda.KERNEL, CONTACT_K), "K2": (tc.KERNEL, CONTACT_K),
-               "K3": (tc.PLAN_KERNEL, 4), "K4": (tc.CHASE_KERNEL, 4)}
+               "K3": (tc.PLAN_KERNEL, 4), "K4": (tc.CHASE_KERNEL, 4),
+               "K5": (pgs_cuda.KERNEL, None)}
     t0 = time.perf_counter()
     infos = dict(zip(kernels, cuda_build.build_all([k for k, _ in kernels.values()])))
     say(f"build: {len(infos)} kernels in {time.perf_counter() - t0:.1f} s wall "
@@ -694,6 +1019,18 @@ def main():
     for key, (kernel, n_boxes) in kernels.items():
         info = infos[key]
         say(f"{key} library: {info.path}")
+        if key == "K5":
+            pgs_cuda.build()
+            for sym, v in sorted(pgs_cuda.ptxas_summary(info.ptxas).items()):
+                say(f"ptxas K5 {'f64' if 'IdLi' in sym else 'f32'} rows "
+                    f"{sym.split('Li')[1].split('E')[0]}: {v}")
+            for dt in (torch.float32, torch.float64):
+                for rows in pgs_cuda.ROW_COUNTS:
+                    a = pgs_cuda.kernel_attributes(dt, rows)
+                    say(f"runtime K5 {str(dt).replace('torch.', '')} rows {rows}: {a} | "
+                        f"elements/SM at {IMPULSE_B}: {IMPULSE_B / 132:.2f} of "
+                        f"{a['blocks_per_sm'] * a['block']} resident")
+            continue
         if key == "K1":
             rollout_cuda.build()
             ptxas = rollout_cuda.ptxas_summary(info.ptxas)
@@ -745,20 +1082,30 @@ def main():
                   1e-6, 43, False, 0.0, conditioning=True)
     compare_chase_scenarios(1e-6)
 
+    # 8a. K5 vs its plain version; 8b. the impulse plant through K5 vs the
+    # golden traces
+    err["K5"] = compare_pgs(torch.float32, 1e-5)
+    compare_pgs(torch.float64, 1e-9)
+    check_traces()
+
     # 8. - 10. the main paths: each closed loop through bin/run_mpc on its kernels
+    # 10b. the EPMC closed loop on the hard-contact plant (K2 plans, K5 steps)
     fns = (rollout_cuda.rollout_tracking_fused, tc.rollout_traversal_fused,
-           tc.rollout_plan_fused, tc.rollout_chase_fused)
+           tc.rollout_plan_fused, tc.rollout_chase_fused, pgs_cuda.pgs_sweep)
     _, pmc = closed_loop("pmc", fns, "closed loop pmc")
     _, epmc = closed_loop("epmc", fns, "closed loop epmc")
     _, sepmc = closed_loop("sepmc", fns, "closed loop sepmc")
+    _, hard = closed_loop("epmc", fns, "closed loop epmc hard-contact", hard_contact=True)
     rounds, robots = 1, 2
-    expected = {"pmc": [STEPS, 0, 0, 0], "epmc": [0, STEPS, 0, 0],
-                "sepmc": [0, 0, CHASE_STEPS * rounds * robots, CHASE_STEPS * rounds * robots]}
-    for task, got in (("pmc", pmc), ("epmc", epmc), ("sepmc", sepmc)):
+    expected = {"pmc": [STEPS, 0, 0, 0, 0], "epmc": [0, STEPS, 0, 0, 0],
+                "sepmc": [0, 0, CHASE_STEPS * rounds * robots, CHASE_STEPS * rounds * robots, 0],
+                "epmc hard-contact": [0, STEPS, 0, 0, STEPS * IMPULSE_SUBSTEPS]}
+    for task, got in (("pmc", pmc), ("epmc", epmc), ("sepmc", sepmc),
+                      ("epmc hard-contact", hard)):
         if got != expected[task]:
-            raise SystemExit(f"kernel launches of the {task} loop (K1-K4): {got}, expected "
+            raise SystemExit(f"kernel launches of the {task} loop (K1-K5): {got}, expected "
                              f"{expected[task]}")
-    launches = {"K1": pmc[0], "K2": epmc[1], "K3": sepmc[2], "K4": sepmc[3]}
+    launches = {"K1": pmc[0], "K2": epmc[1], "K3": sepmc[2], "K4": sepmc[3], "K5": hard[4]}
 
     # 11. timings at the headline solve shapes
     c, params, tl, u, ref = solve_inputs(torch.float32, HORIZON, SUBSTEPS, SUBSTEPS, POP, 3)
@@ -782,12 +1129,13 @@ def main():
         lambda: tc.rollout_traversal_fused(*targs1, *rest, **kw),
         4 * (u.numel() + 37 + HORIZON * 64 + tc.TASK_WIDTH + table.numel() + model_n + POP))[0]
     timing.update(time_chase(model_n))
+    timing["K5"] = time_pgs()
 
     say(json.dumps({"kernels": [
         dict(name=KERNELS[k]["name"], route="cuda", source=KERNELS[k]["source"],
              replaces=KERNELS[k]["replaces"], launches=launches[k], max_abs_err=err[k],
              **timing[k])
-        for k in ("K1", "K2", "K3", "K4")]}))
+        for k in KERNELS]}))
     say(f"total wall {time.perf_counter() - t_start:.1f} s")
     say(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -155,14 +155,16 @@ def run_pmc(args, log=print):
             "device": str(dev)}
 
 
-def setup_epmc(args):
+def setup_epmc(args, env_cfg=None):
     """(device, model, env config, controller, generator, first env state,
     zero warm start) of the EPMC closed loop, float32: the playground
-    element --element_id, the default plant, MPPI at sigma 0.15."""
+    element --element_id, MPPI at sigma 0.15, the plant `env_cfg` (a
+    playground.PlaygroundConfig; default: the default plant on that
+    element), e.g. with hard_contact=True the impulse (PGS) plant."""
     dev = _device.resolve_device(args.device)
     dtype = torch.float32
     model = build_max_model()
-    cfg = playground.PlaygroundConfig(
+    cfg = env_cfg if env_cfg is not None else playground.PlaygroundConfig(
         scene=playground_gen.PlaygroundConfig(element_id=args.element_id))
     mcfg = mppi.MPPIConfig(horizon=args.horizon, population=args.population,
                            iterations=args.iterations, sigma=0.15)
@@ -177,18 +179,21 @@ def setup_epmc(args):
     return dev, model, cfg, ctrl, gen, s, u
 
 
-def run_epmc(args, log=print):
-    """Closed loop on the playground; returns a dict of per-step rewards,
-    fall / reached flags, episode ends and solve times (seconds; CUDA-event
-    times on the card)."""
-    dev, model, cfg, ctrl, gen, s, u = setup_epmc(args)
-    rewards, ep_rewards, ep_lens, t_solve = [], [], [], []
+def run_epmc(args, log=print, env_cfg=None):
+    """Closed loop on the playground (plant `env_cfg`, see setup_epmc);
+    returns a dict of per-step rewards, fall / reached flags, episode ends,
+    solve times and plant step times (seconds; CUDA-event times on the
+    card)."""
+    dev, model, cfg, ctrl, gen, s, u = setup_epmc(args, env_cfg)
+    rewards, ep_rewards, ep_lens, t_solve, t_plant = [], [], [], [], []
     step_rewards, falls, reached, episode_ends = [], [], [], []
     for i in range(args.steps):
         (tgt, u, diag), dt = _timed(
             dev, lambda: ctrl(gen, s.robot, s.scene, s.target_pos, s.target_spd, u))
         t_solve.append(dt)
-        s, _, r, done, info = playground.step(model, cfg, s, tgt - s.robot.joint_pos, gen)
+        (s, _, r, done, info), dt = _timed(
+            dev, lambda: playground.step(model, cfg, s, tgt - s.robot.joint_pos, gen))
+        t_plant.append(dt)
         rewards.append(float(r))
         step_rewards.append(float(r))
         falls.append(bool(info["fall"]))
@@ -209,7 +214,7 @@ def run_epmc(args, log=print):
     log(_report("EPMC", ep_rewards, ep_lens, t_solve))
     return {"step_rewards": step_rewards, "falls": falls, "reached": reached,
             "episode_ends": episode_ends, "ep_rewards": ep_rewards, "ep_lens": ep_lens,
-            "t_solve": t_solve, "device": str(dev)}
+            "t_solve": t_solve, "t_plant": t_plant, "device": str(dev)}
 
 
 def setup_sepmc(args):

@@ -21,6 +21,7 @@ from lifelike_tpu_torch.physics.batched import TLConstants, TLState
 from lifelike_tpu_torch.physics.contact import ContactParams
 from lifelike_tpu_torch.physics.dynamics import RobotState
 from lifelike_tpu_torch.physics.engine import PhysicsParams
+from lifelike_tpu_torch.physics.impulse import ImpulseParams
 from lifelike_tpu_torch.robot.model import MaxModel
 from lifelike_tpu_torch.scene.arena_gen import ArenaConfig
 from lifelike_tpu_torch.scene.boxes import BoxScene
@@ -68,6 +69,23 @@ def physics_params(p) -> PhysicsParams:
         ext_force=np.array(p.ext_force, np.float32),
         contact=ContactParams(*(float(getattr(cp, f)) for f in ContactParams._fields)),
         mass_freeze=int(p.mass_freeze),
+    )
+
+
+def impulse_params(p, device="cuda", dtype=None) -> ImpulseParams:
+    """physics.impulse.ImpulseParams -> port ImpulseParams: scalar leaves as
+    host numbers, per-element leaves (kp, kd, max_tau, mu, ext_force of a
+    randomized batch) as tensors on `device`."""
+    dev = _device.resolve_device(device)
+
+    def leaf(x):
+        return float(x) if np.ndim(x) == 0 else _tensor(x, dev, dtype)
+
+    return ImpulseParams(
+        kp=leaf(p.kp), kd=leaf(p.kd), max_tau=leaf(p.max_tau), mu=leaf(p.mu),
+        dt=float(p.dt), substeps=int(p.substeps), iterations=int(p.iterations),
+        erp=float(p.erp), slop=float(p.slop), ext_force=_tensor(p.ext_force, dev, dtype),
+        use_pallas_pgs=bool(p.use_pallas_pgs),
     )
 
 

@@ -12,8 +12,9 @@ A_LLC delta joint targets (12).
 Contact runs against the full box SDF (physics.engine.control_step with
 scene=): feet step onto obstacle tops and vertical faces push back, so walls
 and hurdles are impassable. Collisions do not end the episode; termination
-is fall / timeout / reach (/ integrator blowup). The hard-contact plant
-(PlaygroundConfig.hard_contact) is not ported yet.
+is fall / timeout / reach (/ integrator blowup). With
+PlaygroundConfig.hard_contact the robot steps on the impulse (PGS) plant of
+physics/impulse.py instead, box rows included: the fidelity and eval mode.
 """
 import math
 from typing import NamedTuple
@@ -25,7 +26,7 @@ from lifelike_tpu_torch.costs import tracking
 from lifelike_tpu_torch.envs import randomizer
 from lifelike_tpu_torch.envs.primitive import ACTION_SIZE, PROP_SIZE, STACK, _proprioception
 from lifelike_tpu_torch.math import quat
-from lifelike_tpu_torch.physics import engine
+from lifelike_tpu_torch.physics import engine, impulse
 from lifelike_tpu_torch.physics.dynamics import RobotState
 from lifelike_tpu_torch.scene import boxes, playground_gen
 
@@ -42,7 +43,10 @@ class PlaygroundConfig(NamedTuple):
     obs_noise_pos_xy: float = 0.0
     obs_noise_yaw: float = 0.0
     obs_noise_pos_z: float = 0.0
-    # hard-contact plant (impulse PGS solver): not ported yet
+    # hard-contact plant: step the robot with the impulse PGS solver
+    # (physics/impulse.py box rows — Bullet's solver discipline,
+    # legged_robot.py:260-264) instead of the compliant penalty engine. The
+    # fidelity / eval mode; the sampling MPC keeps planning compliant.
     hard_contact: bool = False
 
     @property
@@ -183,10 +187,6 @@ def _heading_reward(robot: RobotState, dir_w, scale):
 def step(model, cfg: PlaygroundConfig, s: PlaygroundState, action, generator):
     """action: (..., 12) delta joint targets (or a dict with 'A_LLC').
     Returns (state', obs, reward, done, info)."""
-    if cfg.hard_contact:
-        raise NotImplementedError(
-            "PlaygroundConfig.hard_contact: the impulse (PGS) plant is not ported yet "
-            "(ROADMAP.md Queue 1, slice 8)")
     a_llc = action["A_LLC"] if isinstance(action, dict) else action
     a_llc = torch.as_tensor(a_llc, dtype=s.robot.joint_pos.dtype, device=s.robot.joint_pos.device)
     gen = generator
@@ -210,7 +210,17 @@ def step(model, cfg: PlaygroundConfig, s: PlaygroundState, action, generator):
     push, ext_force = randomizer.push_step(gen, cfg.push, s.push, cfg.policy_dt)
     params = cfg.params._replace(foot_friction=s.friction[..., None], ext_force=ext_force)
     target_q = s.robot.joint_pos + a_llc
-    robot = engine.control_step(model, params, s.robot, target_q, scene=s.scene)
+    if cfg.hard_contact:
+        # impulse PGS plant; the warm-start impulses reset every control step
+        # (within the step the substep chain still warm-starts)
+        ip = impulse.ImpulseParams(
+            kp=cfg.params.kp, kd=cfg.params.kd, max_tau=cfg.params.max_tau, mu=s.friction,
+            dt=cfg.params.dt, substeps=cfg.params.substeps, ext_force=ext_force)
+        lam = impulse.init_lam(s.robot.base_pos.shape[:-1], s.robot.base_pos.dtype,
+                               scene=s.scene, device=s.robot.base_pos.device)
+        robot, _ = impulse.control_step(model, ip, s.robot, lam, target_q, scene=s.scene)
+    else:
+        robot = engine.control_step(model, params, s.robot, target_q, scene=s.scene)
 
     # speed toward the target
     diff = (target_pos - robot.base_pos)[..., :2]

@@ -154,3 +154,20 @@ def step(model, clips, cfg: PrimitiveEnvConfig, env: PrimitiveEnvState, action):
         "ep_avg_reward": ep_ret / torch.clamp_min(max_steps, 1.0),
     }
     return env, obs, reward, done, info
+
+
+def step_autoreset(model, clips, cfg: PrimitiveEnvConfig, env: PrimitiveEnvState, action,
+                   generator, clip_probs=None):
+    """step, then the episodes that ended start afresh from a random clip
+    phase (reset's draws from `generator`) — done rows are overwritten, no
+    branching on the batch."""
+    env2, obs, reward, done, info = step(model, clips, cfg, env, action)
+    env_reset, obs_reset = reset(model, clips, cfg, generator, clip_probs, tuple(env.t.shape))
+
+    def sel(new, old):
+        if isinstance(new, tuple):
+            return type(new)(*(sel(a, b) for a, b in zip(new, old)))
+        d = done.reshape(tuple(done.shape) + (1,) * (new.dim() - done.dim()))
+        return torch.where(d, new, old)
+
+    return sel(env_reset, env2), sel(obs_reset, obs), reward, done, info

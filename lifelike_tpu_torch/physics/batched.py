@@ -264,6 +264,12 @@ def chol6_solve(Lp, b):
     return torch.stack(x)
 
 
+def solve_spd6(A, b, reg=1e-9):
+    """Unrolled Cholesky solve of SPD 6x6 systems, elementwise over the
+    batch. A: (6, 6, Bs, L), b: (6, Bs, L) -> x: (6, Bs, L)."""
+    return chol6_solve(chol6(A, reg), b)
+
+
 # ---------------------------------------------------------------- kinematics
 
 

@@ -314,6 +314,21 @@ def forward_dynamics_apply(fac: DynFactorsBL, tau_base, tau_joint):
     return a_base, qdd
 
 
+def minv_apply_rows(fac: DynFactorsBL, rows):
+    """Apply M^{-1} to n stacked generalized-force rows (..., n, 18) with the
+    shared factorization (the impulse plant's constraint rows reuse the
+    substep's forward-dynamics factor). Returns (..., n, 18)."""
+    rhs_b = rows[..., :, :6]
+    rhs_j = rows[..., :, 6:].reshape(rows.shape[:-1] + (4, 3))
+    rhs = rhs_b - torch.einsum("...lja,...nlj->...na", fac.FtMinv, rhs_j)
+    a_b = _chol6_solve(fac.chol, rhs.transpose(-1, -2)).transpose(-1, -2)  # (..., n, 6)
+    qdd = torch.einsum(
+        "...lij,...nlj->...nli", fac.Ml_inv,
+        rhs_j - torch.einsum("...lja,...na->...nlj", fac.F, a_b),
+    )
+    return torch.cat([a_b, qdd.reshape(qdd.shape[:-2] + (12,))], dim=-1)
+
+
 def forward_dynamics(Mb, F, Ml, tau_base, tau_joint, reg=1e-9):
     """Solve [[Mb, F^T], [F, Ml]] [a_b; qdd] = [tau_base; tau_joint] by the
     Schur complement on the 6x6 base block."""

@@ -58,6 +58,16 @@ _TRUNK_OFFSETS = np.array(
      [0.0, -0.05, 0.0], [0.0, 0.05, 0.0],
      [0.12, -0.05, 0.0], [0.12, 0.05, 0.0]], np.float32
 )
+# The hard-contact plant (physics/impulse.py) collides a denser 5x3 grid of
+# the same r=0.07 spheres against boxes: at 0.06 / 0.05 m spacing the
+# valleys between spheres are ~1.1 cm deep, so a hole bar's lower edge
+# slides across the trunk instead of catching between spheres. The
+# compliant plant and the rollouts keep the 3x2 proxy.
+_TRUNK_OFFSETS_HARD = np.array(
+    [[x, y, 0.0]
+     for x in (-0.12, -0.06, 0.0, 0.06, 0.12)
+     for y in (-0.05, 0.0, 0.05)], np.float32
+)
 
 
 def pd_torques(model, params: PhysicsParams, joint_pos, joint_vel, target_q):

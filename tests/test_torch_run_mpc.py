@@ -140,7 +140,8 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
 for m in ("envs.chase_tag", "scene.arena_gen", "scene.arena_fixed", "costs.chase",
-          "ops.traversal_cuda", "solver.mpc_tasks"):
+          "ops.traversal_cuda", "solver.mpc_tasks", "physics.impulse", "ops.pgs_cuda",
+          "envs.factory", "physics.oracle_traces"):
     assert "lifelike_tpu_torch." + m in names, m
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

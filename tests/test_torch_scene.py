@@ -16,7 +16,6 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from lifelike_tpu.envs import playground as jplayground
@@ -249,7 +248,7 @@ def _jax_env_state(rng, sd, batch):
     scene["target_pos"] = target
     f64 = lambda x: jnp.asarray(np.asarray(x, np.float64))
     jrobot = JRobotState(**{k: f64(v) for k, v in robot.items()})
-    prop = jplayground._proprioception(jrobot)
+    prop = jax.jit(jplayground._proprioception)(jrobot)  # op by op compiles each primitive
     diff = np.linalg.norm((target - robot["base_pos"])[..., :2], axis=-1)
     return jplayground.PlaygroundState(
         robot=jrobot,
@@ -416,6 +415,14 @@ def test_playground_env_matches_reference():
                         "--horizon=3", "--steps=2", "--seed=1"])
     assert len(out["step_rewards"]) == 2 and np.isfinite(out["step_rewards"]).all()
     assert len(out["falls"]) == 2 and len(out["t_solve"]) == 2
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        playground.step(MODEL, playground.PlaygroundConfig(hard_contact=True), None,
-                        torch.zeros(12), None)
+    # the hard-contact plant steps (tests/test_torch_hard_contact.py holds it to JAX)
+    cfg = playground.PlaygroundConfig(
+        params=engine.PhysicsParams(kd=1.0, max_tau=16.0, substeps=2),
+        scene=playground_gen.PlaygroundConfig(element_id=1), hard_contact=True)
+    gen = torch.Generator().manual_seed(8)
+    s, _ = playground.reset(MODEL, cfg, gen, batch=(2,), dtype=F64)
+    s2, obs, r, done, _ = playground.step(MODEL, cfg, s, torch.zeros(2, 12, dtype=F64), gen)
+    assert bool(torch.isfinite(r).all()) and not bool(done.any())
+    for x in tuple(s2.robot) + tuple(obs):
+        assert bool(torch.isfinite(x).all())
+    assert float((s2.robot.base_pos - s.robot.base_pos).abs().max()) > 0.0

@@ -13,7 +13,10 @@ counted the same way from the Pallas kernels' own cost code
   JAX_PLATFORMS=cpu python tools/kernel_op_counts.py
 
 Prints one JSON line per configuration: the physics count, the stage-cost
-count and their sum.
+count and their sum. The PGS sweep (K5) is counted from
+lifelike_tpu.physics.impulse._pgs, the row loop the Pallas sweep is pinned
+to, for one iteration of one batch element: every arithmetic primitive, and
+a dot_general of length K as K multiplies and K - 1 adds.
 """
 import json
 import os
@@ -125,7 +128,48 @@ def chase_stage_ops(n_boxes):
     return _count(stage, _state(), (z + 1.0, z), (z, z + 2.0), z + 1.0)
 
 
+def _count_nested(jaxpr, mult=1):
+    """_count's rule through scan / pjit bodies (a scan body counts
+    `length` times); dot_general: 2K - 1 operations per output of a
+    length-K contraction."""
+    n = 0
+    for eqn in jaxpr.eqns:
+        sub = eqn.params.get("jaxpr", eqn.params.get("call_jaxpr"))
+        if sub is not None:
+            n += _count_nested(getattr(sub, "jaxpr", sub), mult * eqn.params.get("length", 1))
+            continue
+        size = sum(int(np.prod(ov.aval.shape)) for ov in eqn.outvars)
+        if eqn.primitive.name in ARITH:
+            n += mult * size
+        elif eqn.primitive.name == "dot_general":
+            (lhs_c, _), _ = eqn.params["dimension_numbers"]
+            k = int(np.prod([eqn.invars[0].aval.shape[i] for i in lhs_c]))
+            n += mult * size * (2 * k - 1)
+    return n
+
+
+def pgs_ops(with_boxes):
+    """Operations of one PGS sweep (iterations 1) of one element: the flat
+    60-row or the box-scene 129-row system."""
+    from lifelike_tpu.physics import impulse as JI
+
+    idx = JI._MU_IDX_BOX if with_boxes else JI._MU_IDX
+    r, nv = idx.shape[0], JI.NV
+
+    def sweep(v, lam, J, MinvJT, d, b, lo, hi):
+        return JI._pgs(JI.ImpulseParams(iterations=1), v, lam, J, MinvJT, d, b, lo, hi,
+                       mu_idx=idx)
+
+    z = lambda *shape: jnp.zeros(shape, jnp.float32)
+    args = (z(nv), z(r), z(r, nv), z(r, nv), z(r), z(r), z(r), z(r))
+    return r, _count_nested(jax.make_jaxpr(sweep)(*args).jaxpr)
+
+
 def main():
+    for boxes in (False, True):
+        r, n = pgs_ops(boxes)
+        print(json.dumps({"config": f"K5 PGS sweep, {r} rows, per element per iteration",
+                          "ops": n, "per_row": n / r}))
     rows = [
         ("K1 plane, substeps 10, mass_freeze 10", physics_ops(10, 10, 0), 0),
         ("K2 8 boxes, substeps 10, mass_freeze 10", physics_ops(10, 10, 8),
