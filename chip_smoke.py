@@ -6,12 +6,13 @@
 Phases, each reported on its own line; any failure exits non-zero before the
 result line:
   1. the device (torch name, nvidia-smi name and power limit);
-  2. the build of the five CUDA kernels (one nvcc per source, started
+  2. the build of the six CUDA kernels (one nvcc per source, started
      together; wall time, ptxas registers/spills, runtime registers, local
      bytes and resident blocks per SM): K1 the PMC tracking rollout, K2 the
      EPMC traversal rollout with box contact, K3 the SEPMC opponent plan
      rollout, K4 the SEPMC chase rollout, K5 the hard-contact plant's PGS
-     sweep (float32 and float64, 60 and 129 rows);
+     sweep (float32 and float64, 60 and 129 rows), K6 the iLQR Riccati
+     backward sweep (float32 and float64, its dynamic shared memory);
   3. K1 vs its plain PyTorch version, float32, at the JAX kernel test's
      shape (H 3, substeps 2, mass_freeze 1), population 4096, rtol=atol=2e-4;
   4. K1 vs plain version, float64, rtol=atol=1e-6, at the headline solve
@@ -50,6 +51,9 @@ result line:
      rad apart (the trace's own first), the first step < 1e-5 and the median
      H 50 error under the JAX tests' ceilings (walk, run 1e-2, stand 2e-2,
      hurdle 6e-3);
+  8c. K6 vs its plain version on random LQR systems shaped as the reference
+     test's (S 3 and S 8 scenarios, H 50, reg 1e-3 and 0): float32 at 2e-5
+     (x max(|k|, 1) for the feedforward gains), float64 at 1e-9;
   8. the PMC closed loop through bin/run_mpc (population 4096, H 50, 1 MPPI
      iteration, default plant) for STEPS control steps, with K1's launch
      count checked against solves x iterations;
@@ -64,6 +68,18 @@ result line:
  10b. the EPMC closed loop of 9 on the hard-contact plant
      (PlaygroundConfig(hard_contact=True)): K2's launches = STEPS, K5's =
      STEPS x 10 substeps; the plant's time per control step;
+ 10c. the MPPI->iLQR hybrid closed loops through bin/run_mpc --hybrid: PMC at
+     bench.py bench_hybrid's width (population 1024, H 50, default plant,
+     n_refine 7 so S = 8, 2 iLQR iterations) for HYB_STEPS control steps, K1's
+     launches = solves and K6's = solves x iterations, the refined cost <=
+     the best seed's + 1e-5 at every step; EPMC and SEPMC at H
+     HYB_TASK_HORIZON for HYB_TASK_STEPS steps with 1 iteration (K2 / K3 /
+     K4 / K6 launches checked);
+ 10d. K6 vs its plain version on the PMC hybrid loop's own first
+     linearization (captured from its first solve): float32 at 8c's gate
+     where it holds, else at twice the plain sweep's own float32-to-float64
+     distance plus 2e-5 (both printed); float64 at 1e-9 of each block's
+     scale;
  11. timings at the headline solve shapes (float32, mass_freeze 10; the
      chase kernels at substeps 10 on the 4-wall arena as bench.py's
      bench_sepmc): each kernel, its plain version and its bound on this
@@ -72,8 +88,12 @@ result line:
      time from torch.profiler, and the wrapper call) at bench.py
      bench_impulse's shape (B 256 standing robots, 60 rows, 10 iterations)
      and for one robot on the 129-row hurdle system, and the whole
-     hard-contact control step at bench_impulse's shape;
-then one JSON line listing the five kernels, the nvidia-smi line, and last
+     hard-contact control step at bench_impulse's shape; K6 (device time
+     from torch.profiler, the wrapper call, the plain sweep, the bound) at
+     the hybrid's S 8 / H 50 in float32 and float64 and at S 1; where one
+     hybrid PMC solve's time goes (MPPI stage, seed rollout, linearize,
+     sweeps, line search);
+then one JSON line listing the six kernels, the nvidia-smi line, and last
 the result line {"ok": true, "device": {...}}. Needs one card; builds the
 kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
 non-zero without a result when no card (or no lifelike_tpu_torch beside
@@ -109,7 +129,20 @@ OPS_PER_LANE_STEP_CHASE_PLANT = {"K3": 297160, "K4": 297160 + 235}
 # lifelike_tpu.physics.impulse._pgs, a length-18 dot as 35 operations).
 OPS_PER_SWEEP = {60: 4728, 129: 10248}
 IMPULSE_B, IMPULSE_SUBSTEPS = 256, 10  # bench.py bench_impulse's shape
+# K6: the MPPI->iLQR hybrid at bench.py bench_hybrid's width (population
+# pop // 4 = 1024, H 50, n_refine 7: S = 8 scenarios) with run_mpc's default
+# 2 iLQR iterations; its PMC loop runs HYB_STEPS control steps, the EPMC and
+# SEPMC hybrid loops HYB_TASK_STEPS at horizon HYB_TASK_HORIZON, 1 iteration.
+HYB_POP, HYB_REFINE, HYB_ITERS, HYB_STEPS = 1024, 7, 2, 3
+HYB_TASK_HORIZON, HYB_TASK_STEPS = 10, 2
+RICCATI_N, RICCATI_M, RICCATI_S = 37, 12, HYB_REFINE + 1
+# operations and float32 bytes of one Riccati step of one scenario, printed
+# by tools/kernel_op_counts.py (the Pallas kernel's _backward_step traced at
+# n 37, m 12: a length-K dot as K multiplies and K - 1 adds; the six input
+# blocks read once, the two gains written once)
+RICCATI_OPS_PER_STEP, RICCATI_BYTES_PER_STEP = 383995, 15324
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
+PEAK_FP64_FLOPS = 34e12  # H100 SXM, FP64 outside the tensor cores (NVIDIA's data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 KERNELS = {
     "K1": dict(name="rollout_tracking_fused (K1 with K0 inlined)",
@@ -127,6 +160,9 @@ KERNELS = {
     "K5": dict(name="pgs_sweep (K5, the hard-contact plant's PGS sweep)",
                source="lifelike_tpu_torch/csrc/pgs_sweep.cu",
                replaces="lifelike_tpu/ops/pgs_pallas.py:65"),
+    "K6": dict(name="riccati_sweep (K6, the iLQR Riccati backward sweep)",
+               source="lifelike_tpu_torch/csrc/riccati_sweep.cu",
+               replaces="lifelike_tpu/solver/riccati_pallas.py:92"),
 }
 
 
@@ -861,21 +897,265 @@ def time_pgs():
     return rows[n]
 
 
-def closed_loop(task, launches_of, log_prefix, hard_contact=False):
+def riccati_system(S, H, dtype, seed):
+    """An LQR system shaped as the reference test's _rand_lqr
+    (tests/test_riccati_pallas.py, tests/test_torch_riccati.py): A near
+    identity, SPD cost Hessians; numpy from `seed`, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n, m = RICCATI_N, RICCATI_M
+    A = 0.1 * rng.standard_normal((S, H, n, n)) + np.eye(n)
+    Bm = 0.1 * rng.standard_normal((S, H, n, m))
+    cx = rng.standard_normal((S, H, n))
+    cu = rng.standard_normal((S, H, m))
+    W = 0.1 * rng.standard_normal((S, H, n, n))
+    Cxx = W @ np.swapaxes(W, -1, -2) + 0.1 * np.eye(n)
+    V = 0.1 * rng.standard_normal((S, H, m, m))
+    Cuu = V @ np.swapaxes(V, -1, -2) + 0.1 * np.eye(m)
+    return [torch.as_tensor(x, dtype=dtype, device="cuda") for x in (A, Bm, cx, cu, Cxx, Cuu)]
+
+
+def gain_errors(got, want):
+    """(max|dk| / max(max|k|, 1), max|dK| / max(max|K|, 1), max|dk|, max|dK|)
+    of two (k, K) pairs, against the scale of `want`."""
+    (k1, K1), (k2, K2) = got, want
+    dk, dK = float((k1 - k2).abs().max()), float((K1 - K2).abs().max())
+    sk, sK = max(float(k2.abs().max()), 1.0), max(float(K2.abs().max()), 1.0)
+    return dk / sk, dK / sK, dk, dK
+
+
+def compare_riccati(label, args, reg, tol):
+    """K6 vs riccati_sweep_plain on `args` at the reference kernel test's
+    gate: k within tol x max(|k|, 1), K within tol. Returns the largest
+    absolute difference over k and K."""
+    import torch
+
+    from lifelike_tpu_torch.solver import riccati_cuda
+
+    got = riccati_cuda.riccati_sweep(*args, reg=reg)
+    want = riccati_cuda.riccati_sweep_plain(*args, reg=reg)
+    torch.cuda.synchronize()
+    rk, _, dk, dK = gain_errors(got, want)
+    finite = all(bool(torch.isfinite(x).all()) for x in got + want)
+    S, H = args[0].shape[:2]
+    say(f"check K6 {str(args[0].dtype).replace('torch.', '')} {label} S {S} H {H} reg {reg:g}: "
+        f"max|kernel-plain| k {dk:.3e} ({rk:.3e} of max(|k|, 1)) K {dK:.3e} (tol {tol:g}) | "
+        f"max|k| {float(want[0].abs().max()):.4f} max|K| {float(want[1].abs().max()):.4f}")
+    if not finite:
+        raise SystemExit(f"K6 {label}: non-finite gains")
+    if rk > tol or dK > tol:
+        raise SystemExit(f"K6 {label}: kernel disagrees with its plain version")
+    return max(dk, dK)
+
+
+def compare_riccati_random():
+    """Phase 8c: K6 vs its plain version on random systems at the loop's
+    horizon, S 3 and S 8: float32 2e-5, float64 1e-9. Returns the float32
+    max |kernel - plain|."""
+    import torch
+
+    worst = 0.0
+    for S, seed in ((3, 61), (RICCATI_S, 62)):
+        for reg in (1e-3, 0.0):
+            worst = max(worst, compare_riccati("random system", riccati_system(
+                S, HORIZON, torch.float32, seed), reg, 2e-5))
+            compare_riccati("random system", riccati_system(S, HORIZON, torch.float64, seed),
+                            reg, 1e-9)
+    return worst
+
+
+def compare_riccati_loop(args):
+    """Phase 10d: K6 vs its plain version on the hybrid PMC loop's own first
+    linearization (the sweep's float32 inputs, LM damping folded into Cuu,
+    captured from the loop's first solve). Float32: the random systems' gate
+    where it holds; where the plain sweep's own float32-to-float64 distance
+    exceeds it (stiff contact makes Quu poorly conditioned, and Gauss-Jordan
+    without pivoting and LU with pivoting round apart), the kernel's
+    distance from the float64 sweep may be at most twice the plain's, plus
+    2e-5. Float64: 1e-9 of each block's scale. Every number is printed."""
+    import torch
+
+    from lifelike_tpu_torch.solver import riccati_cuda
+
+    tol = 2e-5
+    a64 = [x.double() for x in args]
+    k32 = riccati_cuda.riccati_sweep(*args, reg=0.0)
+    p32 = riccati_cuda.riccati_sweep_plain(*args, reg=0.0)
+    k64 = riccati_cuda.riccati_sweep(*a64, reg=0.0)
+    p64 = riccati_cuda.riccati_sweep_plain(*a64, reg=0.0)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(x).all()) for x in k32 + p32 + k64 + p64):
+        raise SystemExit("K6 loop linearization: non-finite gains")
+    up = lambda g: tuple(x.double() for x in g)
+    rk, rK, dk, dK = gain_errors(k32, p32)
+    floor = gain_errors(up(p32), p64)
+    kern = gain_errors(up(k32), p64)
+    r64 = gain_errors(k64, p64)
+    quu = args[5][:, :, range(RICCATI_M), range(RICCATI_M)]
+    S, H = args[0].shape[:2]
+    say(f"check K6 loop linearization S {S} H {H} (PMC hybrid, first solve; Cuu diagonal "
+        f"{float(quu.min()):.3e} .. {float(quu.max()):.3e}, max|A| "
+        f"{float(args[0].abs().max()):.3e}) | max|k|, max|K| {float(p64[0].abs().max()):.4e}, "
+        f"{float(p64[1].abs().max()):.4e}")
+    say(f"check K6 float32 loop linearization: |kernel-plain| k {dk:.3e} ({rk:.3e} of max(|k|, "
+        f"1)) K {dK:.3e} ({rK:.3e}) | vs the float64 sweep (relative to scale): plain k "
+        f"{floor[0]:.3e} K {floor[1]:.3e}, kernel k {kern[0]:.3e} K {kern[1]:.3e}")
+    if rk <= tol and dK <= tol:
+        gate = f"the random systems' gate ({tol:g})"
+    elif max(floor[0], floor[1]) > tol and kern[0] <= 2 * floor[0] + tol \
+            and kern[1] <= 2 * floor[1] + tol:
+        gate = f"the plain sweep's rounding floor (kernel <= 2 x plain + {tol:g} vs float64)"
+    else:
+        raise SystemExit("K6 loop linearization float32: kernel disagrees with its plain version")
+    say(f"check K6 float32 loop linearization: passes {gate}")
+    say(f"check K6 float64 loop linearization: |kernel-plain| k {r64[2]:.3e} ({r64[0]:.3e} of "
+        f"max(|k|, 1)) K {r64[3]:.3e} ({r64[1]:.3e} of max(|K|, 1)) (tol 1e-9 of scale)")
+    if r64[0] > 1e-9 or r64[1] > 1e-9:
+        raise SystemExit("K6 loop linearization float64: kernel disagrees with its plain version")
+
+
+class SweepCapture:
+    """Within the block, solver.ilqr reaches riccati_sweep through a stand-in
+    for its `riccati_cuda` module whose hook keeps the first call's inputs
+    (clones) and calls riccati_sweep unchanged: riccati_sweep itself, and so
+    its launch count, is untouched."""
+
+    def __enter__(self):
+        import types
+
+        from lifelike_tpu_torch.solver import ilqr
+
+        self.args, self._ilqr = None, ilqr
+        sweep = ilqr.riccati_cuda.riccati_sweep
+
+        def hook(*args, **kw):
+            if self.args is None:
+                self.args = [x.detach().clone() for x in args[:6]]
+            return sweep(*args, **kw)
+
+        self._module, ilqr.riccati_cuda = ilqr.riccati_cuda, types.SimpleNamespace(
+            riccati_sweep=hook)
+        return self
+
+    def __exit__(self, *exc):
+        self._ilqr.riccati_cuda = self._module
+
+
+def time_riccati():
+    """Phase 11 for K6: device time (torch.profiler), the wrapper call, the
+    plain sweep and the bound at the hybrid loop's shape (S 8, H 50) in
+    float32 and float64, and at S 1. Returns the K6 row of the kernels line
+    (float32, S 8)."""
+    import torch
+
+    from lifelike_tpu_torch.solver import riccati_cuda
+
+    rows = {}
+    for S, dtype in ((RICCATI_S, torch.float32), (RICCATI_S, torch.float64),
+                     (1, torch.float32)):
+        args = riccati_system(S, HORIZON, dtype, 70 + S)
+        call = lambda: riccati_cuda.riccati_sweep(*args, reg=1e-3)
+        wrapper_ms = cuda_ms(call, reps=20, warmup=3)
+        kernel_ms = device_ms(call, "riccati_sweep_kernel")
+        plain_ms = cuda_ms(lambda: riccati_cuda.riccati_sweep_plain(*args, reg=1e-3), reps=1)
+        ops = RICCATI_OPS_PER_STEP * S * HORIZON
+        nbytes = RICCATI_BYTES_PER_STEP * S * HORIZON * (dtype.itemsize // 4)
+        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_FP64_FLOPS
+        ops_ms, bytes_ms = 1e3 * ops / peak, 1e3 * nbytes / PEAK_HBM_BYTES
+        bound_ms, by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+        name = str(dtype).replace("torch.", "")
+        say(f"timing K6 {name} S {S} H {HORIZON}: kernel {kernel_ms:.4f} ms (device time, "
+            f"torch.profiler) | wrapper call {wrapper_ms:.4f} ms (CUDA events) | plain "
+            f"{plain_ms:.2f} ms | bound {bound_ms:.6f} ms ({ops:.4e} ops / {peak / 1e12:g} "
+            f"TFLOP/s = {ops_ms:.6f} ms; {nbytes} B / 3.35 TB/s = {bytes_ms:.6f} ms, bound by "
+            f"{by}) | kernel at {100 * bound_ms / kernel_ms:.4f}% of bound | {S} of 132 SMs | "
+            f"library: none (no single PyTorch call computes the sweep)")
+        rows[(S, name)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                               library_ms=None)
+    return rows[(RICCATI_S, "float32")]
+
+
+def hybrid_breakdown(k6_ms):
+    """Phase 11: where one hybrid PMC solve's time goes, at the loop's
+    widths: the host clock (card synchronized) around each stage of one
+    solve from the loop's start state (the MPPI stage, the rollout of the
+    seeds, the linearizations, the sweeps, the line-search rollouts), K6's
+    device time beside it. Runs after phase 10c's loop, whose first solve
+    warmed up the same path."""
+    import types
+
+    import torch
+
+    from lifelike_tpu_torch.bin import run_mpc
+    from lifelike_tpu_torch.solver import ilqr, mppi_tl, riccati_cuda
+
+    args = run_mpc.parse_args([
+        "--task=pmc", f"--population={HYB_POP}", f"--horizon={HORIZON}", "--device=cuda",
+        "--hybrid", f"--ilqr_iterations={HYB_ITERS}", f"--n_refine={HYB_REFINE}", "--seed=0"])
+    dev, model, clips, cfg, ctrl, gen, env, u = run_mpc.setup_pmc(args)
+    # solver.ilqr reaches the sweep through a stand-in for its riccati_cuda
+    # module, so that riccati_sweep (and its launch count) stays untouched
+    sweep_ns = types.SimpleNamespace(riccati_sweep=riccati_cuda.riccati_sweep)
+    stages = {"MPPI stage (K1)": (mppi_tl, "mppi_step"), "seed rollout": (ilqr, "_rollout"),
+              "linearize": (ilqr, "linearize"), "Riccati sweep (K6 call)":
+              (sweep_ns, "riccati_sweep"), "line search": (ilqr, "_feedback_rollout")}
+    spent = {k: 0.0 for k in stages}
+    saved = {k: getattr(mod, fn) for k, (mod, fn) in stages.items()}
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    for k, (mod, fn) in stages.items():
+        setattr(mod, fn, timed(k, saved[k]))
+    ilqr.riccati_cuda = sweep_ns
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl(gen, env.robot, env.clip_idx, env.t, u)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        ilqr.riccati_cuda = riccati_cuda
+        for k, (mod, fn) in stages.items():
+            setattr(mod, fn, saved[k])
+    parts = " | ".join(f"{k} {1e3 * v:.1f} ms ({100 * v / total:.1f}%)" for k, v in spent.items())
+    say(f"timing hybrid PMC solve breakdown (pop {HYB_POP} H {HORIZON} S {RICCATI_S}, "
+        f"{HYB_ITERS} iLQR iterations; host clock, card synchronized around each stage): total "
+        f"{1e3 * total:.1f} ms | {parts} | other {1e3 * (total - sum(spent.values())):.1f} ms | "
+        f"K6 device time {HYB_ITERS} x {k6_ms:.4f} ms = {100 * HYB_ITERS * k6_ms / 1e3 / total:.4f}"
+        f"% of the solve")
+
+
+def closed_loop(task, launches_of, log_prefix, hard_contact=False, hybrid=None):
     """The control steps of run_mpc --task=<task> at the headline widths
     (STEPS; CHASE_STEPS at population CHASE_POP per robot for sepmc), with
     every kernel count set to 0 first; returns (run_mpc's dict, launches per
     kernel in this run). hard_contact (epmc): the playground steps on the
-    impulse (PGS) plant, PlaygroundConfig(hard_contact=True)."""
+    impulse (PGS) plant, PlaygroundConfig(hard_contact=True). hybrid: a dict
+    (steps, population, horizon, ilqr_iterations) for run_mpc --hybrid
+    (n_refine HYB_REFINE)."""
     from lifelike_tpu_torch.bin import run_mpc
     from lifelike_tpu_torch.envs import playground
     from lifelike_tpu_torch.scene import playground_gen
 
-    for k in launches_of:
-        k.launches = 0
     steps, pop = (CHASE_STEPS, CHASE_POP) if task == "sepmc" else (STEPS, POP)
+    horizon = HORIZON
+    flags = []
+    if hybrid:
+        steps, pop, horizon = hybrid["steps"], hybrid["population"], hybrid["horizon"]
+        flags = ["--hybrid", f"--ilqr_iterations={hybrid['ilqr_iterations']}",
+                 f"--n_refine={HYB_REFINE}"]
     argv = [f"--task={task}", f"--steps={steps}", f"--population={pop}",
-            f"--horizon={HORIZON}", "--iterations=1", "--device=cuda", "--seed=0"]
+            f"--horizon={horizon}", "--iterations=1", "--device=cuda", "--seed=0"] + flags
     if task == "epmc":
         argv.append("--element_id=1")
     if task == "sepmc":
@@ -886,6 +1166,8 @@ def closed_loop(task, launches_of, log_prefix, hard_contact=False):
     if hard_contact:
         kw["env_cfg"] = playground.PlaygroundConfig(
             scene=playground_gen.PlaygroundConfig(element_id=args.element_id), hard_contact=True)
+    for k in launches_of:
+        k.launches = 0
     out = run(args, log=lambda m: say(f"{log_prefix}: " + m), **kw)
     launches = [k.launches for k in launches_of]
     rewards = out["step_rewards"]
@@ -902,6 +1184,8 @@ def closed_loop(task, launches_of, log_prefix, hard_contact=False):
                   f"{max(p_ms):.3f} ms")
     if task == "sepmc":
         extra = f" | games {out['games']}, final distance {out['final_dist']:.3f} m"
+    if hybrid:
+        extra += f" | refined cost per step {out['refined_cost']} | seed costs {out['seed_costs']}"
     say(f"{log_prefix}: {len(rewards)} steps, episode ends at {out['episode_ends']}{extra}, "
         f"solve latency after warm-up p50 {statistics.median(t_ms):.3f} ms max {max(t_ms):.3f} ms "
         f"(CUDA events) | kernel launches {launches}")
@@ -998,7 +1282,7 @@ def main():
               file=sys.stderr)
         return 2
     from lifelike_tpu_torch.ops import cuda_build, pgs_cuda, rollout_cuda, traversal_cuda
-    from lifelike_tpu_torch.solver import rollout_tl
+    from lifelike_tpu_torch.solver import riccati_cuda, rollout_tl
 
     t_start = time.perf_counter()
     # 1. device
@@ -1011,7 +1295,7 @@ def main():
     tc = traversal_cuda
     kernels = {"K1": (rollout_cuda.KERNEL, CONTACT_K), "K2": (tc.KERNEL, CONTACT_K),
                "K3": (tc.PLAN_KERNEL, 4), "K4": (tc.CHASE_KERNEL, 4),
-               "K5": (pgs_cuda.KERNEL, None)}
+               "K5": (pgs_cuda.KERNEL, None), "K6": (riccati_cuda.KERNEL, None)}
     t0 = time.perf_counter()
     infos = dict(zip(kernels, cuda_build.build_all([k for k, _ in kernels.values()])))
     say(f"build: {len(infos)} kernels in {time.perf_counter() - t0:.1f} s wall "
@@ -1030,6 +1314,16 @@ def main():
                     say(f"runtime K5 {str(dt).replace('torch.', '')} rows {rows}: {a} | "
                         f"elements/SM at {IMPULSE_B}: {IMPULSE_B / 132:.2f} of "
                         f"{a['blocks_per_sm'] * a['block']} resident")
+            continue
+        if key == "K6":
+            riccati_cuda.build()
+            for sym, v in sorted(riccati_cuda.ptxas_summary(info.ptxas).items()):
+                say(f"ptxas K6 {'f32' if 'IfdE' in sym else 'f64'} I/O: {v}")
+            for dt in (torch.float32, torch.float64):
+                a = riccati_cuda.kernel_attributes(dt)
+                say(f"runtime K6 {str(dt).replace('torch.', '')}: {a} | blocks (scenarios) at "
+                    f"the hybrid's S {RICCATI_S}: {RICCATI_S} of 132 SMs, "
+                    f"{a['blocks_per_sm']} resident per SM")
             continue
         if key == "K1":
             rollout_cuda.build()
@@ -1088,24 +1382,54 @@ def main():
     compare_pgs(torch.float64, 1e-9)
     check_traces()
 
+    # 8c. K6 vs its plain version on random systems
+    err["K6"] = compare_riccati_random()
+
     # 8. - 10. the main paths: each closed loop through bin/run_mpc on its kernels
     # 10b. the EPMC closed loop on the hard-contact plant (K2 plans, K5 steps)
     fns = (rollout_cuda.rollout_tracking_fused, tc.rollout_traversal_fused,
-           tc.rollout_plan_fused, tc.rollout_chase_fused, pgs_cuda.pgs_sweep)
+           tc.rollout_plan_fused, tc.rollout_chase_fused, pgs_cuda.pgs_sweep,
+           riccati_cuda.riccati_sweep)
     _, pmc = closed_loop("pmc", fns, "closed loop pmc")
     _, epmc = closed_loop("epmc", fns, "closed loop epmc")
     _, sepmc = closed_loop("sepmc", fns, "closed loop sepmc")
     _, hard = closed_loop("epmc", fns, "closed loop epmc hard-contact", hard_contact=True)
     rounds, robots = 1, 2
-    expected = {"pmc": [STEPS, 0, 0, 0, 0], "epmc": [0, STEPS, 0, 0, 0],
-                "sepmc": [0, 0, CHASE_STEPS * rounds * robots, CHASE_STEPS * rounds * robots, 0],
-                "epmc hard-contact": [0, STEPS, 0, 0, STEPS * IMPULSE_SUBSTEPS]}
+    # 10c. the hybrid closed loops: PMC at bench_hybrid's width, its first
+    # linearization captured for 10d; EPMC and SEPMC at a smaller depth
+    with SweepCapture() as cap:
+        out, hyb = closed_loop("pmc", fns, "closed loop pmc hybrid", hybrid=dict(
+            steps=HYB_STEPS, population=HYB_POP, horizon=HORIZON, ilqr_iterations=HYB_ITERS))
+    for i, (refined, seeds) in enumerate(zip(out["refined_cost"], out["seed_costs"])):
+        if not refined <= min(seeds) + 1e-5:
+            raise SystemExit(f"hybrid pmc step {i}: refined cost {refined} above the best seed's "
+                             f"{min(seeds)}")
+    t_hyb = [1e3 * t for t in out["t_solve"]]
+    say(f"closed loop pmc hybrid: refined <= best seed + 1e-5 at every step | solve times "
+        f"{', '.join(f'{t:.1f}' for t in t_hyb)} ms (the first includes warm-up)")
+    task_hybrid = dict(steps=HYB_TASK_STEPS, horizon=HYB_TASK_HORIZON, ilqr_iterations=1)
+    _, hyb_epmc = closed_loop("epmc", fns, "closed loop epmc hybrid",
+                              hybrid=dict(task_hybrid, population=POP))
+    _, hyb_sepmc = closed_loop("sepmc", fns, "closed loop sepmc hybrid",
+                               hybrid=dict(task_hybrid, population=CHASE_POP))
+    n = HYB_TASK_STEPS * rounds * robots
+    expected = {"pmc": [STEPS, 0, 0, 0, 0, 0], "epmc": [0, STEPS, 0, 0, 0, 0],
+                "sepmc": [0, 0, CHASE_STEPS * rounds * robots, CHASE_STEPS * rounds * robots, 0,
+                          0],
+                "epmc hard-contact": [0, STEPS, 0, 0, STEPS * IMPULSE_SUBSTEPS, 0],
+                "pmc hybrid": [HYB_STEPS, 0, 0, 0, 0, HYB_STEPS * HYB_ITERS],
+                "epmc hybrid": [0, HYB_TASK_STEPS, 0, 0, 0, HYB_TASK_STEPS],
+                "sepmc hybrid": [0, 0, n, n, 0, n]}
     for task, got in (("pmc", pmc), ("epmc", epmc), ("sepmc", sepmc),
-                      ("epmc hard-contact", hard)):
+                      ("epmc hard-contact", hard), ("pmc hybrid", hyb),
+                      ("epmc hybrid", hyb_epmc), ("sepmc hybrid", hyb_sepmc)):
         if got != expected[task]:
-            raise SystemExit(f"kernel launches of the {task} loop (K1-K5): {got}, expected "
+            raise SystemExit(f"kernel launches of the {task} loop (K1-K6): {got}, expected "
                              f"{expected[task]}")
-    launches = {"K1": pmc[0], "K2": epmc[1], "K3": sepmc[2], "K4": sepmc[3], "K5": hard[4]}
+    launches = {"K1": pmc[0], "K2": epmc[1], "K3": sepmc[2], "K4": sepmc[3], "K5": hard[4],
+                "K6": hyb[5]}
+    # 10d. K6 vs its plain version on the PMC hybrid loop's own linearization
+    compare_riccati_loop(cap.args)
 
     # 11. timings at the headline solve shapes
     c, params, tl, u, ref = solve_inputs(torch.float32, HORIZON, SUBSTEPS, SUBSTEPS, POP, 3)
@@ -1130,6 +1454,8 @@ def main():
         4 * (u.numel() + 37 + HORIZON * 64 + tc.TASK_WIDTH + table.numel() + model_n + POP))[0]
     timing.update(time_chase(model_n))
     timing["K5"] = time_pgs()
+    timing["K6"] = time_riccati()
+    hybrid_breakdown(timing["K6"]["ms"])
 
     say(json.dumps({"kernels": [
         dict(name=KERNELS[k]["name"], route="cuda", source=KERNELS[k]["source"],

@@ -4,9 +4,10 @@ solves of bin/run_mpc's controller (--task=pmc, epmc or sepmc).
   python -m lifelike_tpu_torch.bin.profile_mpc --population=4096 --horizon=50 --steps=5
   python -m lifelike_tpu_torch.bin.profile_mpc --task=epmc --population=4096 --horizon=50
   python -m lifelike_tpu_torch.bin.profile_mpc --task=sepmc --population=2048 --horizon=50
+  python -m lifelike_tpu_torch.bin.profile_mpc --hybrid --population=1024 --horizon=50 --steps=1
   python -m lifelike_tpu_torch.bin.profile_mpc --device=cpu --population=128 --horizon=3
 
-Takes run_mpc's flags. After WARMUP closed-loop control steps (solve and
+Takes run_mpc's flags (--hybrid profiles the MPPI->iLQR hybrid solve). After WARMUP closed-loop control steps (solve and
 plant step, as in run_mpc), `--steps` solves from the state reached are
 timed, then `--steps` more run under the profiler; each starts from the
 warm start the one before returned, and the plant is not stepped in
@@ -127,10 +128,11 @@ def profile_solve(args, log=print):
             if device_top:
                 f.write("\n")
                 f.write(avg.table(sort_by="self_device_time_total", row_limit=-1))
-    log("%s solve profile: pop %d H %d iterations %d | %d solves | solve %.3f ms, "
+    log("%s%s solve profile: pop %d H %d iterations %d | %d solves | solve %.3f ms, "
         "%.3f ms under the profiler (host clock, synchronized) | device %s ms/solve | "
         "device idle share %s | per solve %.1f kernel launches, %.1f memcpys" % (
-            args.task.upper(), args.population, args.horizon, args.iterations, args.steps,
+            args.task.upper(), " hybrid" if args.hybrid else "", args.population, args.horizon,
+            args.iterations, args.steps,
             solve_ms, profiled_ms,
             "not measured" if device_ms is None else "%.3f" % device_ms,
             "not measured" if idle is None else "%.4f" % idle, launches, memcpys))

@@ -18,10 +18,17 @@ per-episode statistics:
     robot's candidates are scored by the CUDA chase kernel); reports per
     game the rewards, the roles, the length and the catch / fall.
 
+--hybrid polishes every task's MPPI solve with batched iLQR
+(solver.hybrid: the MPPI weighted plan and its --n_refine cheapest raw
+candidates, --ilqr_iterations iterations, the Riccati backward sweep on the
+CUDA kernel on the card); each step then also reports the refined cost and
+the seeds' costs.
+
   python -m lifelike_tpu_torch.bin.run_mpc --task=pmc --steps=50
   python -m lifelike_tpu_torch.bin.run_mpc --clip=clip.txt --population=4096 --horizon=50
   python -m lifelike_tpu_torch.bin.run_mpc --task=epmc --element_id=1
   python -m lifelike_tpu_torch.bin.run_mpc --task=sepmc --population=2048 --horizon=50
+  python -m lifelike_tpu_torch.bin.run_mpc --hybrid --population=1024 --horizon=50 --steps=3
   python -m lifelike_tpu_torch.bin.run_mpc --device=cpu --population=128 --horizon=3
 
 --clip takes a reference-format JSON clip file (or directory); the default
@@ -42,7 +49,7 @@ from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.physics.dynamics import RobotState
 from lifelike_tpu_torch.robot.model import build_max_model
 from lifelike_tpu_torch.scene import playground_gen
-from lifelike_tpu_torch.solver import mpc_tasks, mppi, mppi_tl
+from lifelike_tpu_torch.solver import hybrid, ilqr, mpc_tasks, mppi, mppi_tl
 
 
 def arg_parser(description=__doc__.split("\n")[0]):
@@ -59,6 +66,12 @@ def arg_parser(description=__doc__.split("\n")[0]):
     p.add_argument("--iterations", type=int, default=1, help="MPPI iterations per solve")
     p.add_argument("--best_response", type=int, default=1,
                    help="alternating best-response rounds per control step (sepmc)")
+    p.add_argument("--hybrid", action="store_true",
+                   help="MPPI->iLQR hybrid solver (all three tasks)")
+    p.add_argument("--ilqr_iterations", type=int, default=2,
+                   help="iLQR polish iterations (--hybrid)")
+    p.add_argument("--n_refine", type=int, default=7,
+                   help="top raw candidates refined (--hybrid)")
     p.add_argument("--seed", type=int, default=0, help="generator seed")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
@@ -89,6 +102,22 @@ def _clips(path, horizon, device):
     return motion_lib.load_clips(path, device=device)
 
 
+def _icfg(args):
+    return ilqr.ILQRConfig(iterations=args.ilqr_iterations)
+
+
+def _refined(diags, diag):
+    """Append a hybrid solve's refined cost and its seeds' costs: PMC / EPMC
+    the winner and all n_refine + 1 seeds, SEPMC per robot the refined cost
+    and its MPPI plan's seed cost. A plain MPPI solve has neither."""
+    if "refined_cost" in diag:
+        diags["refined_cost"].append(float(diag["refined_cost"]))
+        diags["seed_costs"].append(diag["seed_costs"].double().cpu().tolist())
+    elif "refined_cost_0" in diag:
+        diags["refined_cost"].append([float(diag[f"refined_cost_{i}"]) for i in (0, 1)])
+        diags["seed_costs"].append([float(diag[f"seed_cost_{i}"]) for i in (0, 1)])
+
+
 def setup_pmc(args):
     """(device, model, clips, env config, controller, generator, first env
     state, zero warm start) of the PMC closed loop, float32."""
@@ -103,7 +132,11 @@ def setup_pmc(args):
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     env, _ = primitive.reset(model, clips, cfg, gen)
-    ctrl = mppi_tl.make_mpc_controller(model, c, cfg.params, clips, mcfg, device=dev)
+    if args.hybrid:
+        ctrl = hybrid.make_hybrid_controller(model, c, cfg.params, clips, mcfg, _icfg(args),
+                                             n_refine=args.n_refine, device=dev)
+    else:
+        ctrl = mppi_tl.make_mpc_controller(model, c, cfg.params, clips, mcfg, device=dev)
     u = torch.zeros((mcfg.horizon, 4, 3), dtype=dtype, device=dev)
     return dev, model, clips, cfg, ctrl, gen, env, u
 
@@ -129,9 +162,11 @@ def run_pmc(args, log=print):
     dev, model, clips, cfg, ctrl, gen, env, u = setup_pmc(args)
     rewards, ep_rewards, ep_lens, t_solve = [], [], [], []
     step_rewards, episode_ends = [], []
+    diags = {"refined_cost": [], "seed_costs": []}
     for i in range(args.steps):
         (tgt, u, diag), dt = _timed(dev, lambda: ctrl(gen, env.robot, env.clip_idx, env.t, u))
         t_solve.append(dt)
+        _refined(diags, diag)
         env, _, r, done, info = primitive.step(model, clips, cfg, env,
                                                tgt - env.robot.joint_pos)
         rewards.append(float(r))
@@ -152,7 +187,7 @@ def run_pmc(args, log=print):
     log(_report("PMC", ep_rewards, ep_lens, t_solve))
     return {"step_rewards": step_rewards, "episode_ends": episode_ends,
             "ep_rewards": ep_rewards, "ep_lens": ep_lens, "t_solve": t_solve,
-            "device": str(dev)}
+            "device": str(dev), **diags}
 
 
 def setup_epmc(args, env_cfg=None):
@@ -169,9 +204,14 @@ def setup_epmc(args, env_cfg=None):
     mcfg = mppi.MPPIConfig(horizon=args.horizon, population=args.population,
                            iterations=args.iterations, sigma=0.15)
     c = B.tl_constants(model, dtype=dtype, device=dev)
-    ctrl = mpc_tasks.make_traversal_controller(model, c, cfg.params, mcfg,
-                                               reward_type=cfg.reward_type,
-                                               max_steps=cfg.max_steps, device=dev)
+    if args.hybrid:
+        ctrl = hybrid.make_hybrid_traversal_controller(
+            model, c, cfg.params, mcfg, _icfg(args), n_refine=args.n_refine,
+            reward_type=cfg.reward_type, device=dev)
+    else:
+        ctrl = mpc_tasks.make_traversal_controller(model, c, cfg.params, mcfg,
+                                                   reward_type=cfg.reward_type,
+                                                   max_steps=cfg.max_steps, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     s, _ = playground.reset(model, cfg, gen, dtype=dtype)
@@ -187,10 +227,12 @@ def run_epmc(args, log=print, env_cfg=None):
     dev, model, cfg, ctrl, gen, s, u = setup_epmc(args, env_cfg)
     rewards, ep_rewards, ep_lens, t_solve, t_plant = [], [], [], [], []
     step_rewards, falls, reached, episode_ends = [], [], [], []
+    diags = {"refined_cost": [], "seed_costs": []}
     for i in range(args.steps):
         (tgt, u, diag), dt = _timed(
             dev, lambda: ctrl(gen, s.robot, s.scene, s.target_pos, s.target_spd, u))
         t_solve.append(dt)
+        _refined(diags, diag)
         (s, _, r, done, info), dt = _timed(
             dev, lambda: playground.step(model, cfg, s, tgt - s.robot.joint_pos, gen))
         t_plant.append(dt)
@@ -214,7 +256,7 @@ def run_epmc(args, log=print, env_cfg=None):
     log(_report("EPMC", ep_rewards, ep_lens, t_solve))
     return {"step_rewards": step_rewards, "falls": falls, "reached": reached,
             "episode_ends": episode_ends, "ep_rewards": ep_rewards, "ep_lens": ep_lens,
-            "t_solve": t_solve, "t_plant": t_plant, "device": str(dev)}
+            "t_solve": t_solve, "t_plant": t_plant, "device": str(dev), **diags}
 
 
 def setup_sepmc(args):
@@ -229,8 +271,13 @@ def setup_sepmc(args):
     mcfg = mppi.MPPIConfig(horizon=args.horizon, population=args.population,
                            iterations=args.iterations, sigma=0.15)
     c = B.tl_constants(model, dtype=dtype, device=dev)
-    solver = mpc_tasks.make_chase_solver(model, c, cfg.params, mcfg,
-                                         n_best_response=args.best_response, device=dev)
+    if args.hybrid:
+        solver = hybrid.make_hybrid_chase_solver(
+            model, c, cfg.params, mcfg, _icfg(args), n_refine=args.n_refine,
+            n_best_response=args.best_response, device=dev)
+    else:
+        solver = mpc_tasks.make_chase_solver(model, c, cfg.params, mcfg,
+                                             n_best_response=args.best_response, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     s, _ = chase_tag.reset(model, cfg, gen, dtype=dtype)
@@ -247,10 +294,12 @@ def run_sepmc(args, log=print):
     step_rewards, episode_ends, games, t_solve = [], [], [], []
     rew_sum = np.zeros(2)
     start = 0
+    diags = {"refined_cost": [], "seed_costs": []}
     for i in range(args.steps):
-        (tgt, u, _), dt = _timed(
+        (tgt, u, diag), dt = _timed(
             dev, lambda: solver(gen, s.robots, s.scene, s.flag_pos, s.with_flag, u))
         t_solve.append(dt)
+        _refined(diags, diag)
         s, _, r, done, info = chase_tag.step(model, cfg, s, tgt - s.robots.joint_pos, gen)
         r = r.double().cpu().numpy()
         rew_sum += r
@@ -271,7 +320,7 @@ def run_sepmc(args, log=print):
         len(games), dist,
         1e3 * float(np.percentile(t_solve[1:], 50)) if len(t_solve) > 1 else -1))
     return {"step_rewards": step_rewards, "games": games, "episode_ends": episode_ends,
-            "final_dist": dist, "t_solve": t_solve, "device": str(dev)}
+            "final_dist": dist, "t_solve": t_solve, "device": str(dev), **diags}
 
 
 def main(argv=None):

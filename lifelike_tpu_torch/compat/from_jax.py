@@ -25,6 +25,7 @@ from lifelike_tpu_torch.physics.impulse import ImpulseParams
 from lifelike_tpu_torch.robot.model import MaxModel
 from lifelike_tpu_torch.scene.arena_gen import ArenaConfig
 from lifelike_tpu_torch.scene.boxes import BoxScene
+from lifelike_tpu_torch.solver.ilqr import ILQRConfig
 from lifelike_tpu_torch.solver.rollout_tl import RefTraj
 
 
@@ -87,6 +88,15 @@ def impulse_params(p, device="cuda", dtype=None) -> ImpulseParams:
         erp=float(p.erp), slop=float(p.slop), ext_force=_tensor(p.ext_force, dev, dtype),
         use_pallas_pgs=bool(p.use_pallas_pgs),
     )
+
+
+def ilqr_config(cfg) -> ILQRConfig:
+    """solver.ilqr.ILQRConfig -> port ILQRConfig, field by field (host
+    scalars; the line-search alphas as a tuple of floats)."""
+    ints = ("iterations", "lin_substeps")
+    kw = {f: (int if f in ints else float)(getattr(cfg, f)) for f in ILQRConfig._fields
+          if f != "line_search"}
+    return ILQRConfig(line_search=tuple(float(a) for a in cfg.line_search), **kw)
 
 
 def motion_clips(mc, device="cuda") -> MotionClips:

@@ -106,7 +106,10 @@ def clearance_cost(scene: boxes.BoxScene, state: RobotState, margin=0.15, crawl_
     p = state.base_pos
     d = (p[..., None, :2] - scene.center[..., :, :2]).abs()
     out = torch.clamp_min(d - scene.half[..., :, :2], 0.0)
-    horiz = torch.linalg.vector_norm(out, dim=-1)
+    # sqrt of the sum of squares, as jnp.linalg.norm computes it: over a
+    # box's footprint (out = 0) the gradient is NaN in both packages, where
+    # torch.linalg.vector_norm's would be 0
+    horiz = torch.sqrt(torch.sum(out * out, dim=-1))
     tall = (scene.center[..., :, 2] + scene.half[..., :, 2]) > 0.3
     blocking = tall & scene.active
     if crawl_gap > 0.0:

@@ -113,11 +113,13 @@ def _interp(clips: MotionClips, clip_idx, t):
     max_id = clips.lengths.long()[ci] - 2
     frame_id = torch.minimum(torch.clamp_min(frame_id, 0), max_id)
     T = clips.frames.shape[1]
-    fid = frame_id.clamp(0, T - 1)
-    fid_next = (frame_id + 1).clamp(0, T - 1)
-    fc = clips.frames[ci, fid]  # (..., 19)
-    fn = clips.frames[ci, fid_next]
-    return fc, fn, frac[..., None]
+    flat = clips.frames.reshape(-1, clips.frames.shape[-1])
+
+    def rows(fid):  # frames[ci, fid] as one index_select, which vmap batches
+        lin = ci * T + fid.clamp(0, T - 1)
+        return flat.index_select(0, lin.reshape(-1)).reshape(lin.shape + flat.shape[-1:])
+
+    return rows(frame_id), rows(frame_id + 1), frac[..., None]
 
 
 def sample_frame(clips: MotionClips, clip_idx, t) -> FrameState:

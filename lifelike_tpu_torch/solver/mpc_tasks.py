@@ -44,10 +44,10 @@ def _tl_single(robot_state):
     return B.tl_from_state(B.map_state(lambda x: x[None], robot_state))
 
 
-def _corridor_boxes(params, cfg: MPPIConfig, robot_state, scene, target_pos, target_spd,
+def _corridor_scene(params, cfg: MPPIConfig, robot_state, scene, target_pos, target_spd,
                     contact_k):
-    """Box table (contact_k, 8) of the boxes nearest the segment from the
-    base to where the horizon can reach toward the target,
+    """Sub-scene of the contact_k boxes nearest the segment from the base to
+    where the horizon can reach toward the target,
     [p, p + min(dist to target, speed * H * policy_dt) * dir]."""
     p0 = robot_state.base_pos
     to_tgt = target_pos[:2] - p0[:2]
@@ -57,7 +57,7 @@ def _corridor_boxes(params, cfg: MPPIConfig, robot_state, scene, target_pos, tar
     reach = torch.minimum(d_tgt, spd * cfg.horizon * policy_dt)
     p1 = p0.clone()
     p1[:2] = p0[:2] + to_tgt / d_tgt * reach
-    return traversal_cuda.pack_boxes(boxes.nearest_boxes_corridor(scene, p0, p1, contact_k))
+    return boxes.nearest_boxes_corridor(scene, p0, p1, contact_k)
 
 
 def _check_device(device, c):
@@ -80,8 +80,8 @@ def make_traversal_controller(model, c: B.TLConstants, params, cfg: MPPIConfig,
     _check_device(device, c)
 
     def controller(generator, robot_state, scene, target_pos, target_spd, u_warm, eps=None):
-        table = _corridor_boxes(params, cfg, robot_state, scene, target_pos, target_spd,
-                                contact_k)
+        table = traversal_cuda.pack_boxes(_corridor_scene(
+            params, cfg, robot_state, scene, target_pos, target_spd, contact_k))
         tl = _tl_single(robot_state)
         q0 = robot_state.joint_pos
         ref = traversal_cuda.constant_reference(q0, cfg.horizon)
@@ -118,8 +118,8 @@ def make_gait_traversal_controller(model, c: B.TLConstants, params, cfg: MPPICon
 
     def controller(generator, robot_state, scene, target_pos, target_spd, t_clip, u_warm,
                    eps=None):
-        table = _corridor_boxes(params, cfg, robot_state, scene, target_pos, target_spd,
-                                contact_k)
+        table = traversal_cuda.pack_boxes(_corridor_scene(
+            params, cfg, robot_state, scene, target_pos, target_spd, contact_k))
         tl = _tl_single(robot_state)
         ref = rollout_tl.precompute_reference(model, clips, clip_idx, t_clip, cfg.horizon,
                                               policy_dt)

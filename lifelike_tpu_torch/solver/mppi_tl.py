@@ -36,13 +36,26 @@ def _smooth_noise_tl(generator, shape, beta, dtype, device, eps=None):
     return out
 
 
-def mppi_update(cfg: MPPIConfig, generator, u_nominal, score, eps=None):
+def _topk(u_cand, total_cost, k):
+    """The k cheapest candidates (k, H, 4, 3) and their costs (k,). The
+    first k of a stable ascending sort: ties go to the lower candidate
+    index, as jax.lax.top_k breaks them (torch.topk promises no order)."""
+    cost_sorted, idx = torch.sort(total_cost.reshape(-1), stable=True)
+    idx = idx[:k]
+    flat = u_cand.reshape(u_cand.shape[:3] + (-1,))  # (H, 4, 3, K)
+    return torch.movedim(flat[..., idx], -1, 0), cost_sorted[:k]
+
+
+def mppi_update(cfg: MPPIConfig, generator, u_nominal, score, eps=None, return_topk=0):
     """One MPPI improvement of u_nominal (H, 4, 3) for a single scenario.
 
     The population is laid out as (K / 128, 128) when 128 divides it, else
     (1, K); score(u_cand (H, 4, 3, Bs, L)) -> total cost (Bs, L). eps:
     optional sequence of `cfg.iterations` raw normal tensors (H, 4, 3, Bs, L)
-    used instead of drawing from `generator`.
+    used instead of drawing from `generator`. return_topk: if > 0, the
+    diagnostics gain 'u_topk' (k, H, 4, 3) and 'cost_topk' (k,), the last
+    iteration's k cheapest raw candidates (the seeds of solver.hybrid's iLQR
+    refinement).
     Returns (u_improved (H, 4, 3), diagnostics dict).
     """
     K, H = cfg.population, cfg.horizon
@@ -64,18 +77,21 @@ def mppi_update(cfg: MPPIConfig, generator, u_nominal, score, eps=None):
         w = w.reshape(total_cost.shape)
         u = torch.sum(u_cand * w, dim=(-2, -1))
         c_mean = torch.sum(w * total_cost)
-    return u, {"best_cost": c_min, "weighted_cost": c_mean}
+    diag = {"best_cost": c_min, "weighted_cost": c_mean}
+    if return_topk:
+        diag["u_topk"], diag["cost_topk"] = _topk(u_cand, total_cost, return_topk)
+    return u, diag
 
 
 def mppi_step(c: B.TLConstants, params, cfg: MPPIConfig, generator, state: B.TLState,
-              u_nominal, ref: rollout_tl.RefTraj, eps=None):
+              u_nominal, ref: rollout_tl.RefTraj, eps=None, return_topk=0):
     """mppi_update of a PMC tracking plan: the candidates start from `state`
     (TLState with batch (1, 1)) and are scored by
     rollout_cuda.rollout_tracking_fused against the reference `ref`."""
     def score(u_cand):
         return rollout_cuda.rollout_tracking_fused(c, params, state, u_cand, ref)
 
-    return mppi_update(cfg, generator, u_nominal, score, eps=eps)
+    return mppi_update(cfg, generator, u_nominal, score, eps=eps, return_topk=return_topk)
 
 
 def make_mpc_controller(model, c: B.TLConstants, params, clips, cfg: MPPIConfig,

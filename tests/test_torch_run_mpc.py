@@ -111,8 +111,9 @@ def _check_profile_mpc_cpu():
 
 def _check_run_mpc_without_device_cpu_raises():
     for task in ("pmc", "epmc", "sepmc"):
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            run_mpc.main([f"--task={task}", "--steps=1"])
+        for hybrid in ([], ["--hybrid"]):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                run_mpc.main([f"--task={task}", "--steps=1"] + hybrid)
 
 
 def _check_port_imports_no_jax_and_no_reference_package():
@@ -141,7 +142,8 @@ assert not bad, bad
 assert len(names) >= 20, names
 for m in ("envs.chase_tag", "scene.arena_gen", "scene.arena_fixed", "costs.chase",
           "ops.traversal_cuda", "solver.mpc_tasks", "physics.impulse", "ops.pgs_cuda",
-          "envs.factory", "physics.oracle_traces"):
+          "envs.factory", "physics.oracle_traces", "solver.ilqr", "solver.riccati_cuda",
+          "solver.hybrid"):
     assert "lifelike_tpu_torch." + m in names, m
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -16,7 +16,12 @@ Prints one JSON line per configuration: the physics count, the stage-cost
 count and their sum. The PGS sweep (K5) is counted from
 lifelike_tpu.physics.impulse._pgs, the row loop the Pallas sweep is pinned
 to, for one iteration of one batch element: every arithmetic primitive, and
-a dot_general of length K as K multiplies and K - 1 adds.
+a dot_general of length K as K multiplies and K - 1 adds. The Riccati
+sweep (K6) is counted the same way from the Pallas kernel's own step
+(lifelike_tpu.solver.riccati_pallas._backward_step with its Gauss-Jordan
+inverse), per scenario per horizon step at n = 37, m = 12, beside the bytes
+one step must move (its six input blocks read once, its two gains written
+once, float32).
 """
 import json
 import os
@@ -165,7 +170,26 @@ def pgs_ops(with_boxes):
     return r, _count_nested(jax.make_jaxpr(sweep)(*args).jaxpr)
 
 
+def riccati_ops(n=37, m=12):
+    """(operations, float32 bytes) of one Riccati backward step of one
+    scenario: the Pallas kernel's _backward_step traced at (n, m)."""
+    from lifelike_tpu.solver import riccati_pallas as RP
+
+    def step(A, Bm, cx, cu, Cxx, Cuu, Vx, Vxx):
+        return RP._backward_step(A, Bm, cx, cu, Cxx, Cuu, Vx, Vxx, 1e-3, m)
+
+    z = lambda *shape: jnp.zeros(shape, jnp.float32)
+    args = (z(n, n), z(n, m), z(n, 1), z(m, 1), z(n, n), z(m, m), z(n, 1), z(n, n))
+    ops = _count_nested(jax.make_jaxpr(step)(*args).jaxpr)
+    # A, B, cx, cu, Cxx, Cuu in; k, K out
+    nbytes = 4 * (n * n + n * m + n + m + n * n + m * m + m + m * n)
+    return ops, nbytes
+
+
 def main():
+    ops, nbytes = riccati_ops()
+    print(json.dumps({"config": "K6 Riccati backward step, n 37, m 12, per scenario per step",
+                      "ops": ops, "bytes_f32": nbytes}))
     for boxes in (False, True):
         r, n = pgs_ops(boxes)
         print(json.dumps({"config": f"K5 PGS sweep, {r} rows, per element per iteration",
