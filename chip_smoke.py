@@ -5,12 +5,17 @@
 
 Phases, each reported on its own line; any failure exits non-zero before the
 result line:
-  1. the device (torch name, nvidia-smi name and power limit);
+  1. the device (torch name, nvidia-smi name, power limit and maximum SM
+     clock);
   2. the build of the six CUDA kernels (one nvcc per source, started
      together; wall time, ptxas registers/spills, runtime registers, local
-     bytes and resident blocks per SM): K1 the PMC tracking rollout, K2 the
-     EPMC traversal rollout with box contact, K3 the SEPMC opponent plan
-     rollout, K4 the SEPMC chase rollout, K5 the hard-contact plant's PGS
+     bytes and resident blocks per SM; for K3 and K4 also the lanes per
+     plan / candidate, the candidates per block and the warps per SM at the
+     chase solve's widths): K1 the PMC tracking rollout, K2 the EPMC
+     traversal rollout with box contact, K3 the SEPMC opponent plan rollout
+     and K4 the SEPMC chase rollout (a group of lanes per plan / candidate:
+     K3 eight, two per leg; K4 four, one per leg), K5 the hard-contact
+     plant's PGS
      sweep (float32 and float64, 60 and 129 rows), K6 the iLQR Riccati
      backward sweep (float32 and float64, its dynamic shared memory);
   3. K1 vs its plain PyTorch version, float32, at the JAX kernel test's
@@ -84,7 +89,9 @@ result line:
      chase kernels at substeps 10 on the 4-wall arena as bench.py's
      bench_sepmc): each kernel, its plain version and its bound on this
      card, K3 at S = 1 and S = 16; then each kernel at the closed loops'
-     setting (mass_freeze 1; the chase kernels at substeps 20); K5 (device
+     setting (mass_freeze 1; the chase kernels at substeps 20), K3 and K4
+     also beside their chain floor (the dependency depth of a control step
+     x H x 4 cycles at the card's maximum SM clock); K5 (device
      time from torch.profiler, and the wrapper call) at bench.py
      bench_impulse's shape (B 256 standing robots, 60 rows, 10 iterations)
      and for one robot on the 129-row hurdle system, and the whole
@@ -98,6 +105,19 @@ the result line {"ok": true, "device": {...}}. Needs one card; builds the
 kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
 non-zero without a result when no card (or no lifelike_tpu_torch beside
 this file) is present.
+
+  python3 chip_smoke.py --chase_timing [--root DIR] [--group K3=G] [--group K4=G] [--loop]
+
+runs only phase 11's chase timing (K3 at S = 1 and 16, K4; headline and
+chase-plant settings, plain versions, bounds) of the checkout DIR (default:
+this one), importing DIR's chip_smoke.py and lifelike_tpu_torch, so an
+older commit unpacked with `git archive` into a directory that .gitignore
+lists is timed by its own code; two commits are compared by one such run
+per checkout in one command on one card, in turns (parent, change, change,
+parent). --group K3=G (K4=G) builds K3 (K4) with its lane group kGroup set
+to G, 4 or 8 (a copy of DIR's csrc/ with that constant rewritten, built
+under its own hash). --loop adds phase 10's SEPMC closed loop and its solve
+latency. Ends with one JSON line of the times.
 """
 import importlib.util
 import json
@@ -141,6 +161,13 @@ RICCATI_N, RICCATI_M, RICCATI_S = 37, 12, HYB_REFINE + 1
 # n 37, m 12: a length-K dot as K multiplies and K - 1 adds; the six input
 # blocks read once, the two gains written once)
 RICCATI_OPS_PER_STEP, RICCATI_BYTES_PER_STEP = 383995, 15324
+# Dependency depth of one control step at the chase kernels' settings,
+# printed by tools/kernel_op_counts.py (physics_depth: the longest chain of
+# dependent arithmetic primitives of the traced control_step, the box axis
+# once), keyed by (substeps, mass_freeze). A rollout of H strictly
+# sequential control steps takes at least depth x H x CHAIN_CYCLES cycles.
+CHAIN_DEPTH = {(10, 10): 1410, (20, 1): 2820}
+CHAIN_CYCLES = 4  # latency of a dependent FP32 / FP64 operation on the H100
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 PEAK_FP64_FLOPS = 34e12  # H100 SXM, FP64 outside the tensor cores (NVIDIA's data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
@@ -151,10 +178,11 @@ KERNELS = {
     "K2": dict(name="rollout_traversal_fused (K2 with K0 and box contact inlined)",
                source="lifelike_tpu_torch/csrc/rollout_traversal.cu",
                replaces="lifelike_tpu/ops/traversal_pallas.py:626"),
-    "K3": dict(name="rollout_plan_fused (K3 with K0 and box contact inlined)",
+    "K3": dict(name="rollout_plan_fused (K3, eight lanes per plan, K0 and box contact inlined)",
                source="lifelike_tpu_torch/csrc/rollout_plan.cu",
                replaces="lifelike_tpu/ops/traversal_pallas.py:287"),
-    "K4": dict(name="rollout_chase_fused (K4 with K0 and box contact inlined)",
+    "K4": dict(name="rollout_chase_fused (K4, four lanes per candidate, K0 and box contact "
+                    "inlined)",
                source="lifelike_tpu_torch/csrc/rollout_chase.cu",
                replaces="lifelike_tpu/ops/traversal_pallas.py:486"),
     "K5": dict(name="pgs_sweep (K5, the hard-contact plant's PGS sweep)",
@@ -176,6 +204,47 @@ def nvidia_smi():
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def chain_floor(key, substeps, mass_freeze, kernel_ms):
+    """Print and return the chain floor (ms) of K3 / K4 at one setting."""
+    depth, mhz = CHAIN_DEPTH[(substeps, mass_freeze)], sm_clock_mhz()
+    floor_ms = depth * HORIZON * CHAIN_CYCLES / (mhz * 1e3)
+    say(f"chain floor {key} substeps {substeps} mass_freeze {mass_freeze}: {depth} levels x H "
+        f"{HORIZON} x {CHAIN_CYCLES} cycles / {mhz:g} MHz = {floor_ms:.4f} ms | kernel "
+        f"{kernel_ms:.4f} ms, {kernel_ms / floor_ms:.2f}x the floor")
+    return floor_ms
+
+
+def group_geometry(key, attrs):
+    """K3 / K4's launch at the chase solve's widths (K3: S 1 and SWEEP_S
+    plans; K4: CHASE_POP candidates): lanes per plan / candidate, blocks,
+    warps and SMs used, beside the warps an SM can hold."""
+    import torch
+
+    from lifelike_tpu_torch.ops import traversal_cuda as tc
+
+    kernel = tc.PLAN_KERNEL if key == "K3" else tc.CHASE_KERNEL
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = attrs["blocks_per_sm"] * attrs["block"] // 32
+    parts = []
+    for n in ((1, SWEEP_S) if key == "K3" else (CHASE_POP,)):
+        geo = tc.launch_geometry(kernel, n)
+        warps = geo.blocks * geo.threads // 32
+        parts.append(f"at {n}: {geo.blocks} blocks = {warps} warps on {min(geo.blocks, sms)} of "
+                     f"{sms} SMs, {warps / sms:.2f} warps/SM of {resident} resident")
+    what = "plan" if key == "K3" else "candidate"
+    return (f"{attrs['group']} lanes per {what}, {attrs['per_block']} {what}s per "
+            f"{attrs['block']}-thread block | " + "; ".join(parts))
 
 
 def cuda_ms(fn, reps, warmup=1):
@@ -1251,6 +1320,8 @@ def time_chase(model_n):
         b1 = bound(OPS_PER_LANE_STEP_CHASE_PLANT["K3"] * n * HORIZON, 1)[0]
         say(f"bound K3 S={n} at the chase plant: {b1:.6f} ms (operations) | kernel at "
             f"{100 * b1 / exact_ms:.4f}% of it")
+        chain_floor(f"K3 S={n}", SUBSTEPS, SUBSTEPS, t["ms"])
+        chain_floor(f"K3 S={n}", CHASE_SUBSTEPS, 1, exact_ms)
         timing["K3" if n == 1 else f"K3 S={n}"] = t
     role = torch.tensor(True, device=u.device)
     t, exact_ms = time_kernel(
@@ -1267,6 +1338,8 @@ def time_chase(model_n):
     b1 = bound(OPS_PER_LANE_STEP_CHASE_PLANT["K4"] * CHASE_POP * HORIZON, 1)[0]
     say(f"bound K4 at the chase plant: {b1:.6f} ms (operations) | kernel at "
         f"{100 * b1 / exact_ms:.4f}% of it")
+    chain_floor("K4", SUBSTEPS, SUBSTEPS, t["ms"])
+    chain_floor("K4", CHASE_SUBSTEPS, 1, exact_ms)
     timing["K4"] = t
     return timing
 
@@ -1289,7 +1362,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     say(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda} | "
-        f"nvidia-smi: {smi}")
+        f"nvidia-smi: {smi} | max SM clock {sm_clock_mhz():g} MHz")
 
     # 2. build: one nvcc per kernel source, all started together
     tc = traversal_cuda
@@ -1336,11 +1409,12 @@ def main():
         for dt in (torch.float32, torch.float64):
             a = (rollout_cuda.kernel_attributes(dt, HORIZON) if key == "K1"
                  else tc.kernel_attributes(dt, HORIZON, n_boxes, kernel))
-            lanes = {"K3": 1, "K4": CHASE_POP}.get(key, POP)
-            say(f"runtime {key} {str(dt).replace('torch.', '')}: {a} | "
-                f"{'plans' if key == 'K3' else 'candidates'}/SM at {lanes}: "
-                f"{lanes / 132:.2f} of {a['blocks_per_sm'] * (1 if key == 'K3' else a['block'])} "
-                "resident")
+            if key in ("K3", "K4"):
+                say(f"runtime {key} {str(dt).replace('torch.', '')}: {a} | "
+                    + group_geometry(key, a))
+                continue
+            say(f"runtime {key} {str(dt).replace('torch.', '')}: {a} | candidates/SM at {POP}: "
+                f"{POP / 132:.2f} of {a['blocks_per_sm'] * a['block']} resident")
 
     # 3. / 4. K1 vs its plain version
     err = {"K1": compare("check K1 f32", torch.float32, 3, 2, 1, 2e-4, seed=1)}
@@ -1469,5 +1543,80 @@ def main():
     return 0
 
 
+def chase_timing(argv):
+    """The --chase_timing mode (see the module's docstring)."""
+    import argparse
+    import os
+    import re
+    import shutil
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --chase_timing")
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--group", action="append", default=[], metavar="K3=G")
+    ap.add_argument("--loop", action="store_true")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("smoke_of_root",
+                                                  os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs one NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from lifelike_tpu_torch.ops import cuda_build, rollout_cuda
+    from lifelike_tpu_torch.ops import traversal_cuda as tc
+    from lifelike_tpu_torch.physics import batched as B
+    from lifelike_tpu_torch.robot.model import build_max_model
+
+    if not os.path.dirname(os.path.abspath(tc.__file__)).startswith(root):
+        raise SystemExit(f"lifelike_tpu_torch imported from {tc.__file__}, not from {root}")
+    smi = nvidia_smi()
+    say(f"chase timing: {root} | {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | max SM "
+        f"clock {sm_clock_mhz():g} MHz")
+    groups = {k: int(g) for k, g in (a.split("=") for a in args.group)}
+    if groups:
+        variant = os.path.join(cuda_build.BUILD_DIR, "csrc_" + "_".join(
+            f"{k}g{g}" for k, g in sorted(groups.items())))
+        shutil.rmtree(variant, ignore_errors=True)
+        shutil.copytree(cuda_build.CSRC_DIR, variant)
+        for key, g in groups.items():
+            kernel = {"K3": tc.PLAN_KERNEL, "K4": tc.CHASE_KERNEL}[key]
+            path = os.path.join(variant, kernel.source)
+            with open(path) as f:
+                text, n = re.subn(r"constexpr int kGroup = \d+;", f"constexpr int kGroup = {g};",
+                                  f.read())
+            if n != 1:
+                raise SystemExit(f"{path}: no single `constexpr int kGroup = ...;` to rewrite")
+            with open(path, "w") as f:
+                f.write(text)
+            spec = tc._LIB_SPECS[kernel]
+            tc._LIB_SPECS[kernel] = spec._replace(
+                group=g, per_block=spec.per_block if key == "K3" else tc.BLOCK // g)
+        cuda_build.CSRC_DIR = variant
+    for kernel in (tc.PLAN_KERNEL, tc.CHASE_KERNEL):
+        info = tc.build(kernel)
+        for sym, v in sorted(tc.ptxas_summary(info.ptxas, kernel).items()):
+            say(f"ptxas {kernel.source} {'f64' if 'IdEE' in sym else 'f32'}: {v}")
+    c = B.tl_constants(build_max_model(), dtype=torch.float32, device=torch.device("cuda"))
+    timing = smoke.time_chase(rollout_cuda.pack_model(c).numel())
+    out = {"root": root, "groups": groups, "smi": smi,
+           "timing": {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms")}
+                      for k, v in timing.items()}}
+    if args.loop:
+        run, launches = smoke.closed_loop("sepmc", (tc.rollout_plan_fused, tc.rollout_chase_fused),
+                                          "closed loop sepmc")
+        t_ms = [1e3 * t for t in run["t_solve"][1:]]
+        out["sepmc"] = {"solve_p50_ms": statistics.median(t_ms), "solve_max_ms": max(t_ms),
+                        "launches": launches}
+    say(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--chase_timing"]:
+        sys.exit(chase_timing(sys.argv[2:]))
     sys.exit(main())

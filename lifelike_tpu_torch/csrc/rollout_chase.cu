@@ -21,19 +21,26 @@
 // (solver/rollout_tasks.py::rollout_chase_gait on
 // physics/engine_tl.py::control_step).
 //
-// What bounds it on an H100: FP32 issue and latency, not bytes, as for K2
-// (rollout_traversal.cu): the controls are read once and the costs written
-// once, against ~10^5 scalar operations per candidate per control step,
-// most of them the 14 contact spheres x K boxes of SDF and friction per
-// substep. The design is K2's: one thread per candidate keeps the state on
-// chip for the whole horizon; controls are read coalesced (candidate index
-// fastest); the model constants, the scenario's reference rows (with the
-// opponent's path) and its box table are staged once per block in shared
-// memory; the stage cost accumulates in registers. The posture, fall,
-// clearance and gait terms are K2's (task_cost.cuh). The heading uses the
-// atan2 of the trunk's forward axis, as the plain version does, not the TPU
-// kernel's normalized forward vector: the two differ where that axis is
-// vertical.
+// What bounds it on an H100: latency, not bytes or the operation rate. The
+// controls are read once and the costs written once, against ~10^5 scalar
+// operations per candidate per control step, and each candidate's H x
+// substeps substeps form one dependent chain (1000 at the chase plant).
+// The design shortens that chain and keeps it in registers: a group of
+// four lanes of one warp rolls each candidate, lane l the leg l
+// (scalar_phys.cuh substep_group: its kinematics, mass factors, torques,
+// foot and wheel contact, RNEA bias and joint update; the six trunk
+// spheres split 2, 2, 1, 1; cross-leg sums by __shfl_sync in leg order;
+// the 6x6 base solve on every lane). A warp holds eight candidates and a
+// block is one warp, so 2048 candidates make 256 blocks over all 132 SMs.
+// Lane l reads its leg's three control columns (candidate index fastest,
+// four runs of eight candidates per warp); the model constants, the
+// scenario's reference rows (with the opponent's path) and its box table
+// are staged once per block in shared memory; the stage cost accumulates in
+// registers on every lane of the group and lane 0 writes it. The posture,
+// fall, clearance and gait terms are K2's (task_cost.cuh), the joint sums
+// taken per leg and then over the legs. The heading uses the atan2 of the
+// trunk's forward axis, as the plain version does, not the TPU kernel's
+// normalized forward vector: the two differ where that axis is vertical.
 //
 // Built with plain nvcc into a shared library with a C ABI (loaded with
 // ctypes by ops/traversal_cuda.py); float and double instances are exported.
@@ -45,9 +52,11 @@
 
 namespace lifelike {
 
-constexpr int kBlock = 32;     // threads (= candidates) per block
-constexpr int kOffOpp = 61;    // 2: opponent base x, y at step t
-constexpr int kTaskWidth = 8;  // flag x, flag y, chaser_m, pad
+constexpr int kGroup = 4;                       // lanes per candidate, one leg each
+constexpr int kBlock = 32;                      // threads per block: one warp
+constexpr int kCandPerBlock = kBlock / kGroup;  // candidates per block
+constexpr int kOffOpp = 61;                     // 2: opponent base x, y at step t
+constexpr int kTaskWidth = 8;                   // flag x, flag y, chaser_m, pad
 constexpr int kParamLen = 37;  // host double parameter vector, see params_from_host
 
 // Chase cost settings (costs/chase.py ChaseWeights and the rollout's
@@ -61,10 +70,12 @@ struct ChaseParams {
 };
 
 // One stage of rollout_tasks.rollout_chase_gait's cost (chaser_cost_tl,
-// escapee_cost_tl mixed by the role mask, posture, clearance, gait).
-template <typename T>
-__device__ T chase_cost(const ChaseParams<T>& W, const State<T>& s, const T* r,
-                        const T* boxes, const T* task) {
+// escapee_cost_tl mixed by the role mask, posture, clearance, gait) for lane
+// g.rank of a candidate's group; every lane returns the same value.
+template <typename T, int G>
+__device__ __forceinline__ T chase_cost(const ChaseParams<T>& W, const Group<G>& g,
+                                        const LaneState<T>& s, const T* r, const T* boxes,
+                                        const T* task) {
   T Rb[3][3];
   quat_to_mat(s.q, Rb);
   const T fall = fall_mask(Rb) ? T(1) : T(0);
@@ -85,9 +96,9 @@ __device__ T chase_cost(const ChaseParams<T>& W, const State<T>& s, const T* r,
   const T c_es = (-W.distance * d_opp + W.distance * d_flag) + W.fall * fall;
   const T m = task[2];
   T cost = m * c_ch + (T(1) - m) * c_es;
-  cost = cost + posture_cost(W.post, s);
+  cost = cost + posture_cost(W.post, g, s);
   cost = cost + T(0.5) * clearance_cost(s.pb, boxes, W.n_boxes, T(0));
-  if (W.gait_weight != T(0)) cost = cost + W.gait_weight * gait_cost(s, r, W.gait_vel_weight);
+  if (W.gait_weight != T(0)) cost = cost + W.gait_weight * gait_cost(g, s, r, W.gait_vel_weight);
   return cost;
 }
 
@@ -103,8 +114,8 @@ __global__ void __launch_bounds__(kBlock)
   T* s_ref = s_model + model_len<T>();
   T* s_box = s_ref + P.horizon * kRefWidth;
   // a block lies inside one scenario (the wrapper makes per_scen a multiple
-  // of the block when there is more than one scenario)
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x;
+  // of the block's candidates when there is more than one scenario)
+  const long long first = static_cast<long long>(blockIdx.x) * kCandPerBlock;
   const long long scen = first / per_scen;
   const T* g_ref = ref + scen * P.horizon * kRefWidth;
   const T* g_box = boxes + scen * W.n_boxes * kBoxWidth;
@@ -113,30 +124,29 @@ __global__ void __launch_bounds__(kBlock)
   for (int i = threadIdx.x; i < W.n_boxes * kBoxWidth; i += blockDim.x) s_box[i] = g_box[i];
   __syncthreads();
 
-  const long long k = first + threadIdx.x;
-  if (k >= n) return;
+  const long long k = first + threadIdx.x / kGroup;
+  if (k >= n) return;  // the whole group: its lanes share k
+  const Group<kGroup> g = make_group<kGroup>();
   const ModelConst<T>& M = *reinterpret_cast<const ModelConst<T>*>(s_model);
   T tk[kTaskWidth];
 #pragma unroll
   for (int i = 0; i < kTaskWidth; ++i) tk[i] = task[scen * kTaskWidth + i];
 
-  State<T> s;
-  load_state(state, s);
-  Frozen<T> fr;
+  LaneState<T> s;
+  load_lane_state(state, g.leg, s);
+  LaneFrozen<T> fr;
   T total = T(0);
 #pragma unroll 1
   for (int t = 0; t < P.horizon; ++t) {
     const T* r = s_ref + t * kRefWidth;
-    T target[4][3];
+    T target[3];
 #pragma unroll
-    for (int l = 0; l < 4; ++l)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        target[l][j] = r[kOffTarget + l * 3 + j] + controls[(t * 12LL + l * 3 + j) * n + k];
-    control_step<T, true>(M, P, s, target, fr, s_box, W.n_boxes);
-    total += chase_cost(W, s, r, s_box, tk);
+    for (int j = 0; j < 3; ++j)
+      target[j] = r[kOffTarget + g.leg * 3 + j] + controls[(t * 12LL + g.leg * 3 + j) * n + k];
+    control_step_group<T, true, kGroup>(M, P, g, s, target, fr, s_box, W.n_boxes);
+    total += chase_cost(W, g, s, r, s_box, tk);
   }
-  cost[k] = total;
+  if (g.rank == 0) cost[k] = total;
 }
 
 // hp: kp, kd, max_tau, mu, dt, kn, dn, v_slip, fric_visc_cap, ext[3],
@@ -179,7 +189,7 @@ int launch(const T* ref, const T* task, const T* boxes, const T* model, int mode
   if (n <= 0 || P.horizon <= 0 || P.substeps <= 0 || W.n_boxes < 0) return -3;
   if (n_scen <= 0 || n % n_scen != 0) return -4;
   const long long per_scen = n / n_scen;
-  if (n_scen > 1 && per_scen % kBlock != 0) return -5;
+  if (n_scen > 1 && per_scen % kCandPerBlock != 0) return -5;
   const size_t smem = smem_bytes<T>(P.horizon, W.n_boxes);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(rollout_chase_kernel<T>,
@@ -187,7 +197,7 @@ int launch(const T* ref, const T* task, const T* boxes, const T* model, int mode
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const unsigned grid = static_cast<unsigned>((n + kBlock - 1) / kBlock);
+  const unsigned grid = static_cast<unsigned>((n + kCandPerBlock - 1) / kCandPerBlock);
   rollout_chase_kernel<T><<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       ref, task, boxes, model, state, controls, cost, n, per_scen, P, W);
   return static_cast<int>(cudaGetLastError());
@@ -218,6 +228,7 @@ int attrs(int* num_regs, int* local_bytes, int* max_threads, int* blocks_per_sm,
 extern "C" {
 
 int lifelike_chase_block_size() { return lifelike::kBlock; }
+int lifelike_chase_group_size() { return lifelike::kGroup; }
 int lifelike_chase_param_len() { return lifelike::kParamLen; }
 
 int lifelike_rollout_chase_f32(const float* ref, const float* task, const float* boxes,

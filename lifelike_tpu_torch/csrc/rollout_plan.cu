@@ -15,16 +15,21 @@
 //
 // What bounds it on an H100: latency. The work is one strictly sequential
 // chain of H x substeps substeps per scenario (1000 at the chase plant's
-// 20 substeps), about 10^5 dependent scalar operations per control step,
-// on a single thread; neither the card's operation rate nor its memory
-// rate comes near to limiting it. The TPU kernel replicated each plan over
-// 128 lanes and packed 8 scenarios per program with masks because its
-// sequential loop costs per program; that is tiling, not semantics. Here
-// each scenario is one block: its reference rows, box table and plan are
-// staged in shared memory by the block's 32 threads, then one thread rolls
-// the plan while the others exit. Scenarios run side by side on separate
-// SMs. Splitting one plan's legs or contact spheres across a warp is later
-// work.
+// 20 substeps), about 10^5 scalar operations per control step; neither the
+// card's operation rate nor its memory rate comes near to limiting it. The
+// TPU kernel replicated each plan over 128 lanes and packed 8 scenarios per
+// program with masks because its sequential loop costs per program; that is
+// tiling, not semantics. Here each scenario is one block of one warp: its
+// reference rows, box table and plan are staged in shared memory by the
+// warp, then a group of kGroup = 8 lanes rolls the plan (scalar_phys.cuh
+// substep_group: lanes 2l and 2l+1 hold leg l, the even one runs the
+// foot's plane and box contact, the odd one the wheel's; one trunk sphere
+// on each of lanes 0-5; cross-leg sums by __shfl_sync) while the other 24
+// lanes exit, so the chain a lane runs is its sphere's and its leg's share
+// of each substep, in registers. S plans run on S warps on separate SMs
+// (the scenario sweep's 16 fit side by side). On the H100 kGroup 8 took
+// 0.64-0.65x the time of kGroup 4, K4's four lanes per plan (PERF.md;
+// `chip_smoke.py --chase_timing --group K3=4` builds the other).
 //
 // Built with plain nvcc into a shared library with a C ABI (loaded with
 // ctypes by ops/traversal_cuda.py); float and double instances are exported.
@@ -36,7 +41,8 @@
 
 namespace lifelike {
 
-constexpr int kBlock = 32;     // threads per block (staging); one rolls the plan
+constexpr int kGroup = 8;      // lanes that roll the plan (see above)
+constexpr int kBlock = 32;     // threads per block: one warp, all of it staging
 constexpr int kStateLen = 37;  // pb 3, q 4, vb 3, wb 3, jq 12, jqd 12
 constexpr int kParamLen = 16;  // host double parameter vector, see params_from_host
 
@@ -60,24 +66,25 @@ __global__ void __launch_bounds__(kBlock)
   for (int i = threadIdx.x; i < n_boxes * kBoxWidth; i += blockDim.x) s_box[i] = g_box[i];
   for (int i = threadIdx.x; i < P.horizon * 12; i += blockDim.x) s_plan[i] = g_plan[i];
   __syncthreads();
-  if (threadIdx.x != 0) return;
+  if (threadIdx.x >= kGroup) return;
 
+  const Group<kGroup> g = make_group<kGroup>();
   const ModelConst<T>& M = *reinterpret_cast<const ModelConst<T>*>(s_model);
-  State<T> s;
-  load_state(state + static_cast<long long>(scen) * kStateLen, s);
-  Frozen<T> fr;
+  LaneState<T> s;
+  load_lane_state(state + static_cast<long long>(scen) * kStateLen, g.leg, s);
+  LaneFrozen<T> fr;
 #pragma unroll 1
   for (int t = 0; t < P.horizon; ++t) {
     const T* r = s_ref + t * kRefWidth;
-    T target[4][3];
+    T target[3];
 #pragma unroll
-    for (int l = 0; l < 4; ++l)
+    for (int j = 0; j < 3; ++j)
+      target[j] = r[kOffTarget + g.leg * 3 + j] + s_plan[t * 12 + g.leg * 3 + j];
+    control_step_group<T, true, kGroup>(M, P, g, s, target, fr, s_box, n_boxes);
+    if (g.rank == 0) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
-        target[l][j] = r[kOffTarget + l * 3 + j] + s_plan[t * 12 + l * 3 + j];
-    control_step<T, true>(M, P, s, target, fr, s_box, n_boxes);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) traj[(t * 3LL + i) * n_scen + scen] = s.pb[i];
+      for (int i = 0; i < 3; ++i) traj[(t * 3LL + i) * n_scen + scen] = s.pb[i];
+    }
   }
 }
 
@@ -148,6 +155,7 @@ int attrs(int* num_regs, int* local_bytes, int* max_threads, int* blocks_per_sm,
 extern "C" {
 
 int lifelike_plan_block_size() { return lifelike::kBlock; }
+int lifelike_plan_group_size() { return lifelike::kGroup; }
 int lifelike_plan_param_len() { return lifelike::kParamLen; }
 
 int lifelike_rollout_plan_f32(const float* ref, const float* boxes, const float* model,

@@ -1,9 +1,11 @@
-// Scalar MAX quadruped physics for one MPPI candidate per thread (K0).
+// Scalar MAX quadruped physics for one MPPI candidate per thread or per
+// group of lanes (K0).
 //
 // Replaces lifelike_tpu/ops/scalar_phys.py (control_step, substep,
 // freeze_mass, leg_fk, leg_bias, plane_contact_force, box_forces, _chol6,
 // _quat_integrate): the device-function library that the rollout kernels
-// (rollout_tracking.cu, rollout_traversal.cu) inline. The semantics are
+// (rollout_tracking.cu, rollout_traversal.cu, rollout_plan.cu,
+// rollout_chase.cu) inline. The semantics are
 // those of the plain PyTorch twins lifelike_tpu_torch/physics/engine_tl.py
 // and batched.py: one 500 Hz substep = leg FK, PD + passive + joint-limit
 // torques, sphere-plane contact of the feet and the wheels (and, with a box
@@ -16,9 +18,27 @@
 // Unlike the TPU library, model constants are not folded into the
 // instruction stream: they arrive as a ModelConst<T> staged in shared
 // memory, and the joint axes stay general (Rodrigues rotation with
-// precomputed K and K^2), exactly as the twin computes them. Loops over the
-// four legs are kept rolled (`#pragma unroll 1`) to bound code size and
-// compile time; the three links of a leg unroll.
+// precomputed K and K^2), exactly as the twin computes them.
+//
+// Two forms of the substep share the per-leg pieces (leg_fk, leg_factor,
+// leg_torques, sphere_force + add_contact, leg_bias, leg_rhs,
+// leg_joint_update, trunk_sphere):
+//   * `substep` / `control_step`: one thread rolls one candidate (K1, K2).
+//     The loops over the four legs stay rolled (`#pragma unroll 1`) to bound
+//     code size, so the per-leg rows they index with the runtime leg live in
+//     the thread's stack frame (local memory).
+//   * `substep_group` / `control_step_group`: a group of G lanes of one warp
+//     rolls one candidate (K3, K4). With G = 4 lane l owns leg l; with G = 8
+//     lanes 2l and 2l+1 both hold leg l and split its contact (the foot's
+//     box loop on the even lane, the wheel's on the odd one). A lane keeps
+//     its leg's kinematics, mass factors, joints and torques in registers,
+//     indexed by constants only. The six trunk spheres are spread over the
+//     lanes. The cross-leg sums (base wrench, RNEA bias, mass moments, Schur
+//     correction, the legs' right-hand-side terms) go through __shfl_sync
+//     on the group's mask, legs 0 to 3 in order, each leg's partial taken
+//     in the one-thread order. Every lane then factors and solves the 6x6
+//     base system and steps the base from the same values, so the lanes
+//     agree without a broadcast or a barrier.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -216,13 +236,15 @@ __device__ __forceinline__ void quat_integrate(T* q, const T* w, T dt) {
 
 // --------------------------------------------------------------------- FK
 
+// Leg `leg` from the base pose / velocity and its joint rows jq, jqd (3).
 template <typename T>
 __device__ __forceinline__ void leg_fk(const ModelConst<T>& M, int leg, const T Rb[3][3],
-                                       const State<T>& s, LegKin<T>& k) {
+                                       const T* pb, const T* vb, const T* wb, const T* jq,
+                                       const T* jqd, LegKin<T>& k) {
   const T* Rp = &Rb[0][0];
-  const T* pp = s.pb;
-  const T* wp = s.wb;
-  const T* vp = s.vb;
+  const T* pp = pb;
+  const T* wp = wb;
+  const T* vp = vb;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const T (*R)[3] = reinterpret_cast<const T (*)[3]>(Rp);
@@ -239,8 +261,8 @@ __device__ __forceinline__ void leg_fk(const ModelConst<T>& M, int leg, const T 
 #pragma unroll
     for (int i = 0; i < 3; ++i) k.v[j][i] = vp[i] + wxd[i];
     matvec3(R, M.axis[leg][j], k.a[j]);
-    const T sn = fsin(s.jq[leg][j]);
-    const T cs = fcos(s.jq[leg][j]);
+    const T sn = fsin(jq[j]);
+    const T cs = fcos(jq[j]);
     T Rj[3][3];
 #pragma unroll
     for (int r = 0; r < 3; ++r)
@@ -254,7 +276,7 @@ __device__ __forceinline__ void leg_fk(const ModelConst<T>& M, int leg, const T 
       for (int c = 0; c < 3; ++c)
         k.R[j][r][c] = R[r][0] * Rj[0][c] + R[r][1] * Rj[1][c] + R[r][2] * Rj[2][c];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) k.w[j][i] = wp[i] + k.a[j][i] * s.jqd[leg][j];
+    for (int i = 0; i < 3; ++i) k.w[j][i] = wp[i] + k.a[j][i] * jqd[j];
     Rp = &k.R[j][0][0];
     pp = k.p[j];
     wp = k.w[j];
@@ -279,6 +301,12 @@ __device__ __forceinline__ void leg_fk(const ModelConst<T>& M, int leg, const T 
   cross3(k.w[1], d, wxd);
 #pragma unroll
   for (int i = 0; i < 3; ++i) k.vw[i] = k.v[1][i] + wxd[i];
+}
+
+template <typename T>
+__device__ __forceinline__ void leg_fk(const ModelConst<T>& M, int leg, const T Rb[3][3],
+                                       const State<T>& s, LegKin<T>& k) {
+  leg_fk(M, leg, Rb, s.pb, s.vb, s.wb, s.jq[leg], s.jqd[leg], k);
 }
 
 // --------------------------------------------------------- inertia helpers
@@ -486,37 +514,56 @@ __device__ __forceinline__ void box_forces(const T* p, const T* v, T radius, con
   for (int i = 0; i < 3; ++i) f[i] += acc[i];
 }
 
+// Contact force on one foot or wheel sphere: the z = 0 plane and, with
+// kBoxes, the box table.
+template <typename T, bool kBoxes>
+__device__ __forceinline__ void sphere_force(const T* p, const T* v, T radius, const Params<T>& P,
+                                             const T* boxes, int n_boxes, T* f) {
+  plane_contact(p, v, radius, P, f);
+  if (kBoxes) box_forces(p, v, radius, boxes, n_boxes, P, f);
+}
+
 // Trunk proxy (engine._TRUNK_OFFSETS, float32 values; radius 0.07) against
 // the boxes: six spheres on a 3x2 grid in the body x/y plane. The wrench is
 // taken about the BASE position (moment arm = the rotated offset, not
-// p - origin), as engine_tl.substep does; added to tau_b.
+// p - origin), as engine_tl.substep does. trunk_sphere adds sphere sp's
+// moment and force to torque / force.
+constexpr int kTrunkSpheres = 6;
+
+template <typename T>
+__device__ __forceinline__ void trunk_sphere(const T Rb[3][3], const T* pb, const T* vb,
+                                             const T* wb, int sp, const T* boxes, int n_boxes,
+                                             const Params<T>& P, T* torque, T* force) {
+  const T off[3] = {T(sp < 2 ? -0.12f : (sp < 4 ? 0.0f : 0.12f)), T((sp & 1) ? 0.05f : -0.05f),
+                    T(0)};
+  T ow[3], wxo[3], p[3], v[3];
+  matvec3(Rb, off, ow);
+  cross3(wb, ow, wxo);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    p[i] = pb[i] + ow[i];
+    v[i] = vb[i] + wxo[i];
+  }
+  T f[3] = {T(0), T(0), T(0)};
+  box_forces(p, v, T(0.07), boxes, n_boxes, P, f);
+  T nm[3];
+  cross3(ow, f, nm);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    torque[i] += nm[i];
+    force[i] += f[i];
+  }
+}
+
+// The six spheres' wrench, added to tau_b (one thread).
 template <typename T>
 __device__ __forceinline__ void trunk_box_wrench(const T Rb[3][3], const State<T>& s,
                                                  const T* boxes, int n_boxes, const Params<T>& P,
                                                  T* tau_b) {
   T torque[3] = {T(0), T(0), T(0)}, force[3] = {T(0), T(0), T(0)};
 #pragma unroll 1
-  for (int sp = 0; sp < 6; ++sp) {
-    const T off[3] = {T(sp < 2 ? -0.12f : (sp < 4 ? 0.0f : 0.12f)), T((sp & 1) ? 0.05f : -0.05f),
-                      T(0)};
-    T ow[3], wxo[3], p[3], v[3];
-    matvec3(Rb, off, ow);
-    cross3(s.wb, ow, wxo);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      p[i] = s.pb[i] + ow[i];
-      v[i] = s.vb[i] + wxo[i];
-    }
-    T f[3] = {T(0), T(0), T(0)};
-    box_forces(p, v, T(0.07), boxes, n_boxes, P, f);
-    T nm[3];
-    cross3(ow, f, nm);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      torque[i] += nm[i];
-      force[i] += f[i];
-    }
-  }
+  for (int sp = 0; sp < kTrunkSpheres; ++sp)
+    trunk_sphere(Rb, s.pb, s.vb, s.wb, sp, boxes, n_boxes, P, torque, force);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     tau_b[i] += torque[i];
@@ -634,7 +681,172 @@ __device__ __forceinline__ void finish_factor(const ModelConst<T>& M, const T* h
   chol6(A, chol);
 }
 
-// ---------------------------------------------------------------- substep
+// ---------------------------------------------------------- per-leg body
+
+// PD + passive + joint-limit torques of leg `leg` (its joint rows jq, jqd
+// and its three targets)
+template <typename T>
+__device__ __forceinline__ void leg_torques(const ModelConst<T>& M, const Params<T>& P, int leg,
+                                            const T* jq, const T* jqd, const T* target,
+                                            T* tau_j) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const T q = jq[j], qd = jqd[j];
+    const T tgt = clampv(target[j], T(-kTgtClip), T(kTgtClip));
+    const T tau = clampv(P.kp * (tgt - q) + P.kd * (T(0) - qd), -P.max_tau, P.max_tau);
+    T pas = -M.damping[leg][j] * qd - M.friction[leg][j] * ftanh(qd / T(0.5));
+    const T below = at_most(q - M.lower[leg][j], T(0));
+    const T above = at_least(q - M.upper[leg][j], T(0));
+    pas = pas - T(kLimitK) * (below + above);
+    pas = pas - T(kLimitD) * qd * ((below < T(0) || above > T(0)) ? T(1) : T(0));
+    tau_j[j] = tau + pas;
+  }
+}
+
+// A contact force f at p as a spatial force about O: added to the base
+// wrench tau_b and, through the subspaces of the leg's first NJ joints (the
+// foot acts through all three, the wheel through joints 0 and 1), to tau_j.
+template <int NJ, typename T>
+__device__ __forceinline__ void add_contact(const T* p, const T* f, const T* O,
+                                            const LegFrozen<T>& L, T* tau_b, T* tau_j) {
+  T dp[3], Fsp[6];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) dp[i] = p[i] - O[i];
+  cross3(dp, f, Fsp);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) Fsp[3 + i] = f[i];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) tau_b[i] += Fsp[i];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) tau_j[j] += dot6(L.S[j], Fsp);
+}
+
+// RNEA bias of one leg (frozen link terms, current joint velocities jqd):
+// subtracted from the leg's tau_j; the leg's force on the base added to
+// bias_b.
+template <typename T>
+__device__ __forceinline__ void leg_bias(const ModelConst<T>& M, int leg, const LegFrozen<T>& L,
+                                         const T* jqd, const T* v_base, const T* a_grav,
+                                         T* tau_j, T* bias_b) {
+  T vl[3][6], al[3][6];
+  const T* vp = v_base;
+  const T* ap = a_grav;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const T qd = jqd[j];
+    T cm[6];
+    cross_motion(vp, L.S[j], cm);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      vl[j][i] = vp[i] + L.S[j][i] * qd;
+      al[j][i] = ap[i] + cm[i] * qd;
+    }
+    vp = vl[j];
+    ap = al[j];
+  }
+  T fl[3][6];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const T m = M.link_mass[leg][j];
+    T fa[6], fv[6], cf[6];
+    inertia_apply(m, L.h[j], L.Io[j], al[j], fa);
+    inertia_apply(m, L.h[j], L.Io[j], vl[j], fv);
+    cross_force(vl[j], fv, cf);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) fl[j][i] = fa[i] + cf[i];
+  }
+  T facc[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) facc[i] = fl[2][i];
+  tau_j[2] -= dot6(L.S[2], facc);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) facc[i] = fl[1][i] + fl[2][i];
+  tau_j[1] -= dot6(L.S[1], facc);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) facc[i] = (fl[0][i] + fl[1][i]) + fl[2][i];
+  tau_j[0] -= dot6(L.S[0], facc);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) bias_b[i] += facc[i];
+}
+
+// The leg's term of the Schur right-hand side, subtracted from rhs
+template <typename T>
+__device__ __forceinline__ void leg_rhs(const LegFrozen<T>& L, const T* tau_j, T* rhs) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int a = 0; a < 6; ++a) rhs[a] -= L.FtMinv[i][a] * tau_j[i];
+}
+
+// The leg's joint accelerations given the base acceleration acc, then
+// semi-implicit Euler on its joint rows
+template <typename T>
+__device__ __forceinline__ void leg_joint_update(const LegFrozen<T>& L, const T* tau_j,
+                                                 const T* acc, T dt, T* jq, T* jqd) {
+  T resid[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) resid[j] = tau_j[j] - dot6(L.F[j], acc);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const T qdd = (L.Minv[i][0] * resid[0] + L.Minv[i][1] * resid[1]) + L.Minv[i][2] * resid[2];
+    const T nqd = jqd[i] + qdd * dt;
+    jqd[i] = nqd;
+    jq[i] = jq[i] + nqd * dt;
+  }
+}
+
+// ------------------------------------------------------------- base pieces
+
+// r = pb - O and the base spatial velocity at O
+template <typename T>
+__device__ __forceinline__ void base_motion(const T* pb, const T* vb, const T* wb, const T* O,
+                                            T* r, T* v_base) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r[i] = pb[i] - O[i];
+  T wxr[3];
+  cross3(wb, r, wxr);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    v_base[i] = wb[i];
+    v_base[3 + i] = vb[i] - wxr[i];
+  }
+}
+
+// the base body's bias force, added to bias_b
+template <typename T>
+__device__ __forceinline__ void base_bias(const ModelConst<T>& M, const T* hb, const T* Iob,
+                                          const T* a_grav, const T* v_base, T* bias_b) {
+  T fa[6], fv[6], cf[6];
+  inertia_apply(M.base_mass, hb, Iob, a_grav, fa);
+  inertia_apply(M.base_mass, hb, Iob, v_base, fv);
+  cross_force(v_base, fv, cf);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) bias_b[i] += fa[i] + cf[i];
+}
+
+// semi-implicit Euler of the base; linear acceleration transferred back
+// from O
+template <typename T>
+__device__ __forceinline__ void base_step(const T* acc, const T* r, T dt, T* pb, T* q, T* vb,
+                                          T* wb) {
+  T axr[3], wxv[3];
+  cross3(acc, r, axr);
+  cross3(wb, vb, wxv);
+  T new_w[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const T a_lin = (acc[3 + i] + axr[i]) + wxv[i];
+    const T nv = vb[i] + a_lin * dt;
+    new_w[i] = wb[i] + acc[i] * dt;
+    vb[i] = nv;
+    pb[i] = pb[i] + nv * dt;
+  }
+  quat_integrate(q, new_w, dt);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) wb[i] = new_w[i];
+}
+
+// ------------------------------------------------------ one-thread substep
 
 // One 500 Hz substep. refactor: rebuild the mass factors about the current
 // base position first (substep i % mass_freeze == 0 of a control step).
@@ -657,12 +869,8 @@ __device__ void substep(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
     for (int i = 0; i < 21; ++i) corr[i] = T(0);
   }
   const T* O = fr.origin;
-  T r[3] = {s.pb[0] - O[0], s.pb[1] - O[1], s.pb[2] - O[2]};
-  T wxr[3];
-  cross3(s.wb, r, wxr);
-  // base spatial velocity at O and the gravity pseudo-acceleration
-  const T v_base[6] = {s.wb[0], s.wb[1], s.wb[2],
-                       s.vb[0] - wxr[0], s.vb[1] - wxr[1], s.vb[2] - wxr[2]};
+  T r[3], v_base[6];  // base spatial velocity at O and the gravity pseudo-acceleration
+  base_motion(s.pb, s.vb, s.wb, O, r, v_base);
   const T a_grav[6] = {T(0), T(0), T(0), T(0), T(0), T(kGravity)};
 
   T tau_b[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};  // contact wrench at O
@@ -675,87 +883,13 @@ __device__ void substep(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
     leg_fk(M, leg, Rb, s, k);
     LegFrozen<T>& L = fr.leg[leg];
     if (refactor) leg_factor(M, leg, k, O, L, h_tot, Io_tot, corr);
-
-    // PD + passive + joint-limit torques
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const T q = s.jq[leg][j], qd = s.jqd[leg][j];
-      const T tgt = clampv(target[leg][j], T(-kTgtClip), T(kTgtClip));
-      const T tau = clampv(P.kp * (tgt - q) + P.kd * (T(0) - qd), -P.max_tau, P.max_tau);
-      T pas = -M.damping[leg][j] * qd - M.friction[leg][j] * ftanh(qd / T(0.5));
-      const T below = at_most(q - M.lower[leg][j], T(0));
-      const T above = at_least(q - M.upper[leg][j], T(0));
-      pas = pas - T(kLimitK) * (below + above);
-      pas = pas - T(kLimitD) * qd * ((below < T(0) || above > T(0)) ? T(1) : T(0));
-      tau_j[leg][j] = tau + pas;
-    }
-
-    // foot (acts through all three joints) and wheel (joints 1, 2) contact
-    T f[3], dp[3], Fsp[6];
-    plane_contact(k.pf, k.vf, M.foot_radius, P, f);
-    if (kBoxes) box_forces(k.pf, k.vf, M.foot_radius, boxes, n_boxes, P, f);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) dp[i] = k.pf[i] - O[i];
-    cross3(dp, f, Fsp);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) Fsp[3 + i] = f[i];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) tau_b[i] += Fsp[i];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) tau_j[leg][j] += dot6(L.S[j], Fsp);
-
-    plane_contact(k.pw, k.vw, M.wheel_radius, P, f);
-    if (kBoxes) box_forces(k.pw, k.vw, M.wheel_radius, boxes, n_boxes, P, f);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) dp[i] = k.pw[i] - O[i];
-    cross3(dp, f, Fsp);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) Fsp[3 + i] = f[i];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) tau_b[i] += Fsp[i];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) tau_j[leg][j] += dot6(L.S[j], Fsp);
-
-    // RNEA bias of this leg (frozen link terms, current joint velocities)
-    T vl[3][6], al[3][6];
-    const T* vp = v_base;
-    const T* ap = a_grav;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const T qd = s.jqd[leg][j];
-      T cm[6];
-      cross_motion(vp, L.S[j], cm);
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        vl[j][i] = vp[i] + L.S[j][i] * qd;
-        al[j][i] = ap[i] + cm[i] * qd;
-      }
-      vp = vl[j];
-      ap = al[j];
-    }
-    T fl[3][6];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const T m = M.link_mass[leg][j];
-      T fa[6], fv[6], cf[6];
-      inertia_apply(m, L.h[j], L.Io[j], al[j], fa);
-      inertia_apply(m, L.h[j], L.Io[j], vl[j], fv);
-      cross_force(vl[j], fv, cf);
-#pragma unroll
-      for (int i = 0; i < 6; ++i) fl[j][i] = fa[i] + cf[i];
-    }
-    T facc[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) facc[i] = fl[2][i];
-    tau_j[leg][2] -= dot6(L.S[2], facc);
-#pragma unroll
-    for (int i = 0; i < 6; ++i) facc[i] = fl[1][i] + fl[2][i];
-    tau_j[leg][1] -= dot6(L.S[1], facc);
-#pragma unroll
-    for (int i = 0; i < 6; ++i) facc[i] = (fl[0][i] + fl[1][i]) + fl[2][i];
-    tau_j[leg][0] -= dot6(L.S[0], facc);
-#pragma unroll
-    for (int i = 0; i < 6; ++i) bias_b[i] += facc[i];
+    leg_torques(M, P, leg, s.jq[leg], s.jqd[leg], target[leg], tau_j[leg]);
+    T f[3];
+    sphere_force<T, kBoxes>(k.pf, k.vf, M.foot_radius, P, boxes, n_boxes, f);
+    add_contact<3>(k.pf, f, O, L, tau_b, tau_j[leg]);
+    sphere_force<T, kBoxes>(k.pw, k.vw, M.wheel_radius, P, boxes, n_boxes, f);
+    add_contact<2>(k.pw, f, O, L, tau_b, tau_j[leg]);
+    leg_bias(M, leg, L, s.jqd[leg], v_base, a_grav, tau_j[leg], bias_b);
   }
 
   if (kBoxes) trunk_box_wrench(Rb, s, boxes, n_boxes, P, tau_b);
@@ -769,16 +903,7 @@ __device__ void substep(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
     for (int i = 0; i < 6; ++i) Io_tot[i] += Iob[i];
     finish_factor(M, h_tot, Io_tot, corr, fr.chol);
   }
-
-  // base bias f_base and the external push
-  {
-    T fa[6], fv[6], cf[6];
-    inertia_apply(M.base_mass, hb, Iob, a_grav, fa);
-    inertia_apply(M.base_mass, hb, Iob, v_base, fv);
-    cross_force(v_base, fv, cf);
-#pragma unroll
-    for (int i = 0; i < 6; ++i) bias_b[i] += fa[i] + cf[i];
-  }
+  base_bias(M, hb, Iob, a_grav, v_base, bias_b);
 #pragma unroll
   for (int i = 0; i < 3; ++i) tau_b[3 + i] += P.ext[i];
 
@@ -787,48 +912,14 @@ __device__ void substep(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
 #pragma unroll
   for (int a = 0; a < 6; ++a) rhs[a] = tau_b[a] - bias_b[a];
 #pragma unroll 1
-  for (int leg = 0; leg < 4; ++leg) {
-    const LegFrozen<T>& L = fr.leg[leg];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int a = 0; a < 6; ++a) rhs[a] -= L.FtMinv[i][a] * tau_j[leg][i];
-  }
+  for (int leg = 0; leg < 4; ++leg) leg_rhs(fr.leg[leg], tau_j[leg], rhs);
   T acc[6];
   chol6_solve(fr.chol, rhs, acc);
 
-  const T dt = P.dt;
 #pragma unroll 1
-  for (int leg = 0; leg < 4; ++leg) {
-    const LegFrozen<T>& L = fr.leg[leg];
-    T resid[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) resid[j] = tau_j[leg][j] - dot6(L.F[j], acc);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const T qdd = (L.Minv[i][0] * resid[0] + L.Minv[i][1] * resid[1]) + L.Minv[i][2] * resid[2];
-      const T nqd = s.jqd[leg][i] + qdd * dt;
-      s.jqd[leg][i] = nqd;
-      s.jq[leg][i] = s.jq[leg][i] + nqd * dt;
-    }
-  }
-
-  // semi-implicit Euler; linear acceleration transferred back from O
-  T axr[3], wxv[3];
-  cross3(acc, r, axr);
-  cross3(s.wb, s.vb, wxv);
-  T new_w[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const T a_lin = (acc[3 + i] + axr[i]) + wxv[i];
-    const T nv = s.vb[i] + a_lin * dt;
-    new_w[i] = s.wb[i] + acc[i] * dt;
-    s.vb[i] = nv;
-    s.pb[i] = s.pb[i] + nv * dt;
-  }
-  quat_integrate(s.q, new_w, dt);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) s.wb[i] = new_w[i];
+  for (int leg = 0; leg < 4; ++leg)
+    leg_joint_update(fr.leg[leg], tau_j[leg], acc, P.dt, s.jq[leg], s.jqd[leg]);
+  base_step(acc, r, P.dt, s.pb, s.q, s.vb, s.wb);
 }
 
 // One 50 Hz control step: `substeps` substeps with a held target; mass
@@ -841,6 +932,209 @@ __device__ void control_step(const ModelConst<T>& M, const Params<T>& P, State<T
 #pragma unroll 1
   for (int i = 0; i < P.substeps; ++i)
     substep<T, kBoxes>(M, P, s, target, fr, (i % freeze) == 0, boxes, n_boxes);
+}
+
+// ------------------------------------------------------ lane-group substep
+
+// One candidate's state as a lane of its group holds it.
+template <typename T>
+struct LaneState {
+  T pb[3], q[4], vb[3], wb[3];  // the base: the same on every lane of the group
+  T jq[3], jqd[3];              // the lane's leg
+};
+
+template <typename T>
+struct LaneFrozen {
+  T origin[3];
+  LegFrozen<T> leg;  // the lane's leg
+  T chol[21];
+};
+
+// G consecutive lanes of one warp, aligned to G, that roll one candidate.
+template <int G>
+struct Group {
+  static_assert(G == 4 || G == 8, "a group is 4 lanes (one leg each) or 8 (leg, foot | wheel)");
+  static constexpr int kPerLeg = G / 4;  // lanes per leg
+  unsigned mask;                         // the group's lanes within the warp
+  int rank;                              // lane within the group
+  int leg;                               // rank / kPerLeg
+};
+
+template <int G>
+__device__ __forceinline__ Group<G> make_group() {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  Group<G> g;
+  g.rank = lane & (G - 1);
+  g.leg = g.rank / Group<G>::kPerLeg;
+  g.mask = ((1u << G) - 1u) << (lane - g.rank);
+  return g;
+}
+
+// Sum of x over the group's four legs (ranks 0, kPerLeg, ...), leg 0 first;
+// every lane of the group gets the same value.
+template <int G, typename T>
+__device__ __forceinline__ T legs_sum(const Group<G>& g, T x) {
+  T s = __shfl_sync(g.mask, x, 0, G);
+#pragma unroll
+  for (int l = 1; l < 4; ++l) s = s + __shfl_sync(g.mask, x, l * Group<G>::kPerLeg, G);
+  return s;
+}
+
+template <int N, int G, typename T>
+__device__ __forceinline__ void legs_sum_n(const Group<G>& g, T* x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = legs_sum(g, x[i]);
+}
+
+// Sum of x over every lane of the group, rank 0 first.
+template <int G, typename T>
+__device__ __forceinline__ T lanes_sum(const Group<G>& g, T x) {
+  T s = __shfl_sync(g.mask, x, 0, G);
+#pragma unroll
+  for (int l = 1; l < G; ++l) s = s + __shfl_sync(g.mask, x, l, G);
+  return s;
+}
+
+// x[leg * 3 + j] of a 12-row table for a runtime leg, read with constant
+// indices only (no copy of the table to local memory)
+template <typename T>
+__device__ __forceinline__ T leg_entry(const T* x, int leg, int j) {
+  T v = x[j];
+#pragma unroll
+  for (int l = 1; l < 4; ++l) v = leg == l ? x[l * 3 + j] : v;
+  return v;
+}
+
+// The leg's foot and wheel contact. G = 4: this lane runs both spheres;
+// G = 8: the even lane the foot and the odd lane the wheel, then they swap
+// forces, so both lanes of the leg add the same wrench.
+template <typename T, bool kBoxes, int G>
+__device__ __forceinline__ void leg_contact(const Group<G>& g, const ModelConst<T>& M,
+                                            const Params<T>& P, const LegKin<T>& k, const T* O,
+                                            const LegFrozen<T>& L, const T* boxes, int n_boxes,
+                                            T* tau_b, T* tau_j) {
+  T ff[3], fw[3];
+  if constexpr (G == 4) {
+    sphere_force<T, kBoxes>(k.pf, k.vf, M.foot_radius, P, boxes, n_boxes, ff);
+    sphere_force<T, kBoxes>(k.pw, k.vw, M.wheel_radius, P, boxes, n_boxes, fw);
+  } else {
+    const bool wheel = (g.rank & 1) != 0;
+    T p[3], v[3], f[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      p[i] = wheel ? k.pw[i] : k.pf[i];
+      v[i] = wheel ? k.vw[i] : k.vf[i];
+    }
+    sphere_force<T, kBoxes>(p, v, wheel ? M.wheel_radius : M.foot_radius, P, boxes, n_boxes, f);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const T other = __shfl_xor_sync(g.mask, f[i], 1, G);
+      ff[i] = wheel ? other : f[i];
+      fw[i] = wheel ? f[i] : other;
+    }
+  }
+  add_contact<3>(k.pf, ff, O, L, tau_b, tau_j);
+  add_contact<2>(k.pw, fw, O, L, tau_b, tau_j);
+}
+
+// The substep of `substep` for lane g.rank of its group: the same
+// arithmetic, the leg loop spread over the lanes. The trunk spheres of a
+// lane: G = 4 splits the six 2, 2, 1, 1; G = 8 puts one on each of ranks
+// 0-5.
+template <typename T, bool kBoxes, int G>
+__device__ __forceinline__ void substep_group(const ModelConst<T>& M, const Params<T>& P,
+                                              const Group<G>& g, LaneState<T>& s,
+                                              const T* target, LaneFrozen<T>& fr, bool refactor,
+                                              const T* boxes, int n_boxes) {
+  T Rb[3][3];
+  quat_to_mat(s.q, Rb);
+  if (refactor) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) fr.origin[i] = s.pb[i];
+  }
+  const T* O = fr.origin;
+  T r[3], v_base[6];
+  base_motion(s.pb, s.vb, s.wb, O, r, v_base);
+  const T a_grav[6] = {T(0), T(0), T(0), T(0), T(0), T(kGravity)};
+  T hb[3], Iob[6];
+  base_terms(M, Rb, s.pb, O, hb, Iob);
+
+  LegFrozen<T>& L = fr.leg;
+  T tau_b[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+  T bias_b[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+  T tau_j[3];
+  {
+    LegKin<T> k;
+    leg_fk(M, g.leg, Rb, s.pb, s.vb, s.wb, s.jq, s.jqd, k);
+    if (refactor) {
+      // the factors first: only the 21 values of the Cholesky factor stay
+      // live through the contact below
+      T h_tot[3] = {T(0), T(0), T(0)};
+      T Io_tot[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+      T corr[21];
+#pragma unroll
+      for (int i = 0; i < 21; ++i) corr[i] = T(0);
+      leg_factor(M, g.leg, k, O, L, h_tot, Io_tot, corr);
+      legs_sum_n<3>(g, h_tot);
+      legs_sum_n<6>(g, Io_tot);
+      legs_sum_n<21>(g, corr);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) h_tot[i] += hb[i];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) Io_tot[i] += Iob[i];
+      finish_factor(M, h_tot, Io_tot, corr, fr.chol);
+    }
+    leg_torques(M, P, g.leg, s.jq, s.jqd, target, tau_j);
+    leg_contact<T, kBoxes, G>(g, M, P, k, O, L, boxes, n_boxes, tau_b, tau_j);
+  }
+  leg_bias(M, g.leg, L, s.jqd, v_base, a_grav, tau_j, bias_b);
+  legs_sum_n<6>(g, tau_b);
+  legs_sum_n<6>(g, bias_b);
+
+  if (kBoxes) {
+    T torque[3] = {T(0), T(0), T(0)}, force[3] = {T(0), T(0), T(0)};
+    const int first = G == 4 ? (g.rank < 2 ? 2 * g.rank : g.rank + 2) : g.rank;
+    const int last = G == 4 ? (g.rank < 2 ? first + 2 : first + 1)
+                            : (g.rank < kTrunkSpheres ? first + 1 : first);
+#pragma unroll 1
+    for (int sp = first; sp < last; ++sp)
+      trunk_sphere(Rb, s.pb, s.vb, s.wb, sp, boxes, n_boxes, P, torque, force);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      tau_b[i] += lanes_sum(g, torque[i]);
+      tau_b[3 + i] += lanes_sum(g, force[i]);
+    }
+  }
+
+  base_bias(M, hb, Iob, a_grav, v_base, bias_b);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) tau_b[3 + i] += P.ext[i];
+
+  // Schur solve against the (frozen) factors, on every lane
+  T part[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+  leg_rhs(L, tau_j, part);
+  legs_sum_n<6>(g, part);
+  T rhs[6];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) rhs[a] = (tau_b[a] - bias_b[a]) + part[a];
+  T acc[6];
+  chol6_solve(fr.chol, rhs, acc);
+
+  leg_joint_update(L, tau_j, acc, P.dt, s.jq, s.jqd);
+  base_step(acc, r, P.dt, s.pb, s.q, s.vb, s.wb);
+}
+
+// control_step for lane g.rank of its group; target: the lane's leg's three
+// joint targets.
+template <typename T, bool kBoxes, int G>
+__device__ __forceinline__ void control_step_group(const ModelConst<T>& M, const Params<T>& P,
+                                                   const Group<G>& g, LaneState<T>& s,
+                                                   const T* target, LaneFrozen<T>& fr,
+                                                   const T* boxes, int n_boxes) {
+  const int freeze = P.mass_freeze > 1 ? P.mass_freeze : 1;
+#pragma unroll 1
+  for (int i = 0; i < P.substeps; ++i)
+    substep_group<T, kBoxes, G>(M, P, g, s, target, fr, (i % freeze) == 0, boxes, n_boxes);
 }
 
 }  // namespace lifelike

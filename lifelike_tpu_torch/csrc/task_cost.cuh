@@ -1,5 +1,7 @@
 // Stage-cost terms shared by the task rollout kernels (K2 rollout_traversal.cu,
-// K4 rollout_chase.cu): posture, fall, clearance and the gait prior.
+// K4 rollout_chase.cu): posture, fall, clearance and the gait prior, in the
+// one-thread form (K2) and the lane-group form (K4: the sums over the 12
+// joints taken per leg, then over the legs in leg order).
 //
 // Replaces the shared helpers of lifelike_tpu/ops/traversal_pallas.py
 // (_posture_cost, _fall_mask, _clearance_cost and the gait-tracking block of
@@ -26,12 +28,22 @@ struct PostureParams {
   T stand[12];  // costs/traversal.py STAND_POSE
 };
 
-// rollout_tasks.posture_cost_tl: height hinge, uprightness, stand pose,
-// crawl ceiling
+// rollout_tasks.posture_cost_tl from the squared stand-pose error summed
+// over the 12 joints: height hinge, uprightness, stand pose, crawl ceiling
+template <typename T>
+__device__ __forceinline__ T posture_from(const PostureParams<T>& W, const T* pb, const T* q,
+                                          T pose_err) {
+  const T z = pb[2];
+  const T up_z = T(1) - T(2) * (q[0] * q[0] + q[1] * q[1]);
+  T posture = W.height * at_least(W.height_min - z, T(0)) + W.upright * (T(1) - up_z) +
+              W.pose * (pose_err / T(12));
+  if (W.ceiling > T(0)) posture = posture + W.ceiling_w * at_least(z - W.ceiling, T(0));
+  return posture;
+}
+
+// rollout_tasks.posture_cost_tl (one thread)
 template <typename T>
 __device__ __forceinline__ T posture_cost(const PostureParams<T>& W, const State<T>& s) {
-  const T z = s.pb[2];
-  const T up_z = T(1) - T(2) * (s.q[0] * s.q[0] + s.q[1] * s.q[1]);
   T pose_err = T(0);
 #pragma unroll
   for (int l = 0; l < 4; ++l)
@@ -40,10 +52,21 @@ __device__ __forceinline__ T posture_cost(const PostureParams<T>& W, const State
       const T e = s.jq[l][j] - W.stand[l * 3 + j];
       pose_err += e * e;
     }
-  T posture = W.height * at_least(W.height_min - z, T(0)) + W.upright * (T(1) - up_z) +
-              W.pose * (pose_err / T(12));
-  if (W.ceiling > T(0)) posture = posture + W.ceiling_w * at_least(z - W.ceiling, T(0));
-  return posture;
+  return posture_from(W, s.pb, s.q, pose_err);
+}
+
+// posture_cost for lane g.rank of a group: each lane's leg, then the legs'
+// sum in leg order
+template <typename T, int G>
+__device__ __forceinline__ T posture_cost(const PostureParams<T>& W, const Group<G>& g,
+                                          const LaneState<T>& s) {
+  T pose_err = T(0);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const T e = s.jq[j] - leg_entry(W.stand, g.leg, j);
+    pose_err += e * e;
+  }
+  return posture_from(W, s.pb, s.q, legs_sum(g, pose_err));
 }
 
 // rollout_tl.fall_mask_tl: roll > 45 deg or pitch > 60 deg; Rb = base rotation
@@ -56,7 +79,7 @@ __device__ __forceinline__ bool fall_mask(const T Rb[3][3]) {
 // rollout_tasks.clearance_cost_tl against the box table (margin 0.15, tall
 // threshold 0.3; crawl_gap > 0 exempts boxes whose bottom clears it)
 template <typename T>
-__device__ T clearance_cost(const T* pb, const T* boxes, int n_boxes, T crawl_gap) {
+__device__ __forceinline__ T clearance_cost(const T* pb, const T* boxes, int n_boxes, T crawl_gap) {
   T total = T(0);
 #pragma unroll 1
   for (int b = 0; b < n_boxes; ++b) {
@@ -90,6 +113,21 @@ __device__ __forceinline__ T gait_cost(const State<T>& s, const T* r, T gait_vel
   return e_q / T(12) + gait_vel_weight * (e_qd / T(12));
 }
 
+// gait_cost for lane g.rank of a group
+template <typename T, int G>
+__device__ __forceinline__ T gait_cost(const Group<G>& g, const LaneState<T>& s, const T* r,
+                                       T gait_vel_weight) {
+  T e_q = T(0), e_qd = T(0);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const T dq = s.jq[j] - r[kOffJP + g.leg * 3 + j];
+    e_q += dq * dq;
+    const T dv = s.jqd[j] - r[kOffJV + g.leg * 3 + j];
+    e_qd += dv * dv;
+  }
+  return legs_sum(g, e_q) / T(12) + gait_vel_weight * (legs_sum(g, e_qd) / T(12));
+}
+
 // The shared 37-value start state: pb 3, q 4, vb 3, wb 3, jq 12, jqd 12.
 template <typename T>
 __device__ __forceinline__ void load_state(const T* state, State<T>& s) {
@@ -108,6 +146,25 @@ __device__ __forceinline__ void load_state(const T* state, State<T>& s) {
       s.jq[l][j] = state[13 + l * 3 + j];
       s.jqd[l][j] = state[25 + l * 3 + j];
     }
+}
+
+// The same for a lane of a group that holds leg `leg`: the base and that
+// leg's joint rows.
+template <typename T>
+__device__ __forceinline__ void load_lane_state(const T* state, int leg, LaneState<T>& s) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    s.pb[i] = state[i];
+    s.vb[i] = state[7 + i];
+    s.wb[i] = state[10 + i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s.q[i] = state[3 + i];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    s.jq[j] = state[13 + leg * 3 + j];
+    s.jqd[j] = state[25 + leg * 3 + j];
+  }
 }
 
 }  // namespace lifelike

@@ -10,10 +10,13 @@ ops/traversal_pallas (K2, K3, K4).
     it computes solver.rollout_tasks.rollout_traversal.
   * `rollout_plan_fused` (K3, csrc/rollout_plan.cu) rolls one fixed plan per
     scenario and returns its base-position trajectory: the opponent's path
-    of a chase solve. One thread per scenario.
+    of a chase solve. One warp per scenario, eight lanes of it rolling the
+    plan (two per leg, splitting its foot and wheel contact;
+    csrc/scalar_phys.cuh substep_group).
   * `rollout_chase_fused` (K4, csrc/rollout_chase.cu) scores the candidates
-    of one robot of a SEPMC chase solve against the opponent's trajectory:
-    K2's design with the chase stage cost, either role by a mask.
+    of one robot of a SEPMC chase solve against the opponent's trajectory,
+    either role by a mask: a group of four lanes per candidate (one leg
+    each), eight candidates per one-warp block.
 
 Controls are deltas on the packed reference's target joints. Candidates (K2,
 K4) may be split into S scenarios (Bs / S rows each), each with its own box
@@ -59,16 +62,26 @@ class _Lib(NamedTuple):
     launch_args: tuple  # ctypes argument types of the launch function
     param_len: int  # host double parameter vector of the launch
     symbol: str  # kernel function name in the ptxas report
+    group: int  # lanes per candidate (K3: per plan); checked against the library if > 1
+    per_block: int  # candidates (K3: plans) per block of BLOCK threads
+
+
+class LaunchGeometry(NamedTuple):
+    group: int  # lanes per candidate (K3: per plan)
+    threads: int  # threads per block
+    per_block: int  # candidates (K3: plans) per block
+    blocks: int  # grid size
 
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+BLOCK = 32  # threads per block of K2, K3 and K4: one warp
 _LIB_SPECS = {
     KERNEL: _Lib("traversal", (_PTR,) * 4 + (_I32,) + (_PTR,) * 3 + (_I64, _I64, _PTR, _I32, _PTR),
-                 43, "rollout_traversal_kernel"),
+                 43, "rollout_traversal_kernel", 1, 32),
     PLAN_KERNEL: _Lib("plan", (_PTR,) * 3 + (_I32,) + (_PTR,) * 3 + (_I32, _PTR, _I32, _PTR),
-                      16, "rollout_plan_kernel"),
+                      16, "rollout_plan_kernel", 8, 1),
     CHASE_KERNEL: _Lib("chase", (_PTR,) * 4 + (_I32,) + (_PTR,) * 3 + (_I64, _I64, _PTR, _I32, _PTR),
-                       37, "rollout_chase_kernel"),
+                       37, "rollout_chase_kernel", 4, 8),
 }
 _LOADED = {}  # Kernel -> (ctypes library, BuildInfo)
 
@@ -93,6 +106,13 @@ def build(kernel: cuda_build.Kernel = KERNEL) -> cuda_build.BuildInfo:
         getattr(lib, f"lifelike_{spec.name}_{stem}").restype = _I32
     if getattr(lib, f"lifelike_{spec.name}_param_len")() != spec.param_len:
         raise RuntimeError(f"{kernel.source}: parameter layout differs from ops/traversal_cuda.py")
+    group = spec.group
+    if spec.group > 1:
+        fn = getattr(lib, f"lifelike_{spec.name}_group_size")
+        fn.argtypes, fn.restype = [], _I32
+        group = fn()
+    if (getattr(lib, f"lifelike_{spec.name}_block_size")(), group) != (BLOCK, spec.group):
+        raise RuntimeError(f"{kernel.source}: block / group size differs from ops/traversal_cuda.py")
     _LOADED[kernel] = (lib, info)
     return info
 
@@ -104,6 +124,20 @@ def _fn(kernel, dtype):
     return getattr(_LOADED[kernel][0], f"lifelike_rollout_{spec.name}_{suffix}")
 
 
+def launch_geometry(kernel: cuda_build.Kernel, n, n_scen=1) -> LaunchGeometry:
+    """Block and grid of a launch of `kernel` over n candidates (K3: n
+    plans, one block each) in n_scen scenario blocks. A block must lie inside
+    one scenario: with more than one scenario, the candidates per scenario
+    must be a multiple of the block's (ValueError otherwise)."""
+    spec = _LIB_SPECS[kernel]
+    if n <= 0 or n_scen <= 0 or n % n_scen:
+        raise ValueError(f"{n} candidates in {n_scen} scenarios")
+    if n_scen > 1 and (n // n_scen) % spec.per_block:
+        raise ValueError(f"{n // n_scen} candidates per scenario: a multiple of {spec.per_block} "
+                         "(one block) is needed when there is more than one scenario")
+    return LaunchGeometry(spec.group, BLOCK, spec.per_block, -(-n // spec.per_block))
+
+
 def ptxas_summary(text, kernel: cuda_build.Kernel = KERNEL):
     """ptxas registers / spills / stack of one kernel's instances."""
     return cuda_build.ptxas_summary(text, _LIB_SPECS[kernel].symbol)
@@ -111,8 +145,9 @@ def ptxas_summary(text, kernel: cuda_build.Kernel = KERNEL):
 
 def kernel_attributes(dtype=torch.float32, horizon=50, n_boxes=8,
                       kernel: cuda_build.Kernel = KERNEL):
-    """Registers, local (spill) bytes per thread, block size and resident
-    blocks per SM of a compiled kernel, from the CUDA runtime."""
+    """Registers, local (spill) bytes per thread, block size, lanes per
+    candidate (group), candidates per block and resident blocks per SM of a
+    compiled kernel, from the CUDA runtime."""
     build(kernel)
     lib, spec = _LOADED[kernel][0], _LIB_SPECS[kernel]
     fn = getattr(lib, f"lifelike_{spec.name}_attrs_{'f64' if dtype == torch.float64 else 'f32'}")
@@ -122,8 +157,8 @@ def kernel_attributes(dtype=torch.float32, horizon=50, n_boxes=8,
         raise RuntimeError(f"cudaFuncGetAttributes/occupancy failed: error {err}")
     regs, local, max_threads, blocks = (v.value for v in vals)
     return {"registers": regs, "local_bytes": local, "max_threads": max_threads,
-            "block": getattr(lib, f"lifelike_{spec.name}_block_size")(),
-            "blocks_per_sm": blocks}
+            "block": getattr(lib, f"lifelike_{spec.name}_block_size")(), "group": spec.group,
+            "per_block": spec.per_block, "blocks_per_sm": blocks}
 
 
 def pack_boxes(scene) -> torch.Tensor:
@@ -233,8 +268,9 @@ def _pack_state(state: B.TLState, n_scen, dev, dtype):
 
 
 def _launch_candidates(kernel, c, state, controls, tab, rows, task, hp):
-    """Launch K2 or K4: one thread per candidate of `controls` from the one
-    start state, S = len(tab) scenario blocks. Returns the cost (Bs, L)."""
+    """Launch K2 (one thread per candidate) or K4 (four lanes per
+    candidate) over the candidates of `controls` from the one start state,
+    S = len(tab) scenario blocks. Returns the cost (Bs, L)."""
     dev, dtype = controls.device, controls.dtype
     S = tab.shape[0]
     _check_launch(controls, S)
@@ -242,9 +278,7 @@ def _launch_candidates(kernel, c, state, controls, tab, rows, task, hp):
         raise ValueError("controls must be contiguous")
     H, Bs, L = controls.shape[0], controls.shape[3], controls.shape[4]
     n = Bs * L
-    if S > 1 and (n // S) % 32:
-        raise ValueError(f"{n // S} candidates per scenario: a multiple of 32 (one block) "
-                         "is needed when there is more than one scenario")
+    launch_geometry(kernel, n, S)
     _check("c.joint_offset", c.joint_offset, dev, dtype)
     st = _pack_state(state, 1, dev, dtype)
     model = _packed_model(c)

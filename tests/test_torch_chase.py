@@ -10,7 +10,9 @@ by compat.from_jax where box contact fires on the feet, the wheels and the
 trunk from the first substep, and one float32 case at the Pallas kernels'
 own 2e-4. The kernels' plain versions (ops.traversal_cuda.rollout_plan_plain
 and rollout_chase_plain, which the wrappers run for CPU tensors) equal the
-rollouts, scenario-batched too. The raw-delta chase solver is held against
+rollouts, scenario-batched too; the kernels' launch geometry (lanes per
+candidate, candidates per block, grid, the refused scenario blocks) is
+checked in pure Python. The raw-delta chase solver is held against
 the JAX solver with injected noise (the normals JAX draws) over two solves
 with a role switch at 1e-9; `check_chase_solver` also serves
 tests/test_torch_chase_env.py, which holds the gait solver.
@@ -321,6 +323,26 @@ def _check_rollout_float32(p, want):
     assert_close(got, want[1][0], rtol=2e-4, atol=2e-4)
 
 
+def _check_launch_geometry():
+    """The wrappers' launch geometry (pure Python, no kernel): K4 rolls each
+    candidate on four lanes, eight candidates per one-warp block, so 2048
+    candidates make 256 blocks; K3 rolls each plan on eight lanes of a warp;
+    K2 keeps a thread per candidate. A scenario block must hold whole blocks
+    of candidates, or the launch is refused."""
+    tc = traversal_cuda
+    assert tc.launch_geometry(tc.CHASE_KERNEL, 2048) == (4, 32, 8, 256)
+    assert tc.launch_geometry(tc.CHASE_KERNEL, 2048, 4).blocks == 256
+    assert tc.launch_geometry(tc.CHASE_KERNEL, 20).blocks == 3  # a ragged last block
+    assert tc.launch_geometry(tc.PLAN_KERNEL, 16) == (8, 32, 1, 16)
+    assert tc.launch_geometry(tc.KERNEL, 4096, 4) == (1, 32, 32, 128)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tc.launch_geometry(tc.CHASE_KERNEL, 16, 4)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tc.launch_geometry(tc.KERNEL, 64, 4)
+    with pytest.raises(ValueError, match="scenarios"):
+        tc.launch_geometry(tc.CHASE_KERNEL, 10, 4)
+
+
 # Each test file of the port holds at most two test items: pytest-xdist's
 # loadfile scheduler queues files by item count, so files this small run
 # after the long reference files and do not lengthen the tier-1 run.
@@ -333,6 +355,7 @@ def test_chase_arenas_costs_and_rollouts_match_reference():
     c, p, want = _check_rollouts_float64(rng)
     _check_scenarios(c, p)
     _check_rollout_float32(p, want)
+    _check_launch_geometry()
 
 
 def check_chase_solver(gait_prior, n_best_response, tol):

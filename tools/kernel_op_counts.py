@@ -13,7 +13,15 @@ counted the same way from the Pallas kernels' own cost code
   JAX_PLATFORMS=cpu python tools/kernel_op_counts.py
 
 Prints one JSON line per configuration: the physics count, the stage-cost
-count and their sum. The PGS sweep (K5) is counted from
+count and their sum. Beside each count of K1-K4 stands the dependency depth
+of one control step (`physics_depth`, `stage_depth`): the longest path of
+dependent arithmetic primitives through the same jaxpr, each primitive one
+level whatever its shape, so the box axis counts once (its boxes are
+independent), and a reduction over it (the sum of the boxes' forces) counts
+one level too. A strictly sequential rollout cannot run faster than depth x
+H x (the latency of one dependent operation, about 4 cycles on the H100's
+FP32 and FP64 pipes) per candidate: chip_smoke.py turns the depth into the
+chain floor of K3 and K4 with the card's own maximum SM clock. The PGS sweep (K5) is counted from
 lifelike_tpu.physics.impulse._pgs, the row loop the Pallas sweep is pinned
 to, for one iteration of one batch element: every arithmetic primitive, and
 a dot_general of length K as K multiplies and K - 1 adds. The Riccati
@@ -40,6 +48,9 @@ ARITH = {
 }  # tools/sol_report.py's set
 
 
+REDUCE = {"reduce_sum", "reduce_max", "reduce_min", "reduce_prod", "argmax", "argmin"}
+
+
 def _count(fn, *args):
     n = 0
     for eqn in jax.make_jaxpr(fn)(*args).jaxpr.eqns:
@@ -47,6 +58,34 @@ def _count(fn, *args):
             for ov in eqn.outvars:
                 n += int(np.prod(ov.aval.shape)) if ov.aval.shape else 1
     return n
+
+
+def _depth_of(jaxpr, in_depths):
+    """Longest chain of dependent ARITH / REDUCE primitives from the inputs
+    (at in_depths) to each output of `jaxpr`, entering call bodies (jit,
+    custom_jvp_call)."""
+    depth = dict(zip(jaxpr.invars, in_depths))
+
+    def of(v):  # a literal (it has a value) starts no chain
+        return 0 if hasattr(v, "val") else depth.get(v, 0)
+
+    for eqn in jaxpr.eqns:
+        ins = [of(v) for v in eqn.invars]
+        sub = eqn.params.get("jaxpr", eqn.params.get("call_jaxpr"))
+        if sub is not None:
+            outs = _depth_of(getattr(sub, "jaxpr", sub), ins)
+        else:
+            step = 1 if eqn.primitive.name in ARITH | REDUCE else 0
+            outs = [max(ins, default=0) + step] * len(eqn.outvars)
+        for ov, d in zip(eqn.outvars, outs):
+            depth[ov] = d
+    return [of(v) for v in jaxpr.outvars]
+
+
+def _depth(fn, *args):
+    """Dependency depth of fn's outputs (the longest over them), inputs at 0."""
+    closed = jax.make_jaxpr(fn)(*args)
+    return max(_depth_of(closed.jaxpr, [0] * len(closed.jaxpr.invars)), default=0)
 
 
 def _state():
@@ -64,7 +103,7 @@ def _boxes(k):
     return tuple(jnp.zeros((k, 1, 1), jnp.float32) for _ in range(7))
 
 
-def physics_ops(substeps, mass_freeze, n_boxes):
+def physics_ops(substeps, mass_freeze, n_boxes, measure=_count):
     from lifelike_tpu.ops import scalar_phys as SP
     from lifelike_tpu.physics import engine
     from lifelike_tpu.robot.model import build_max_model
@@ -74,10 +113,10 @@ def physics_ops(substeps, mass_freeze, n_boxes):
                                   mass_freeze=mass_freeze)
     target = tuple((z, z + 0.5, z + 1.5) for z in [jnp.zeros((1, 1), jnp.float32)] * 4)
     bx = _boxes(n_boxes) if n_boxes else None
-    return _count(lambda s: SP.control_step(sm, params, s, target, boxes=bx), _state())
+    return measure(lambda s: SP.control_step(sm, params, s, target, boxes=bx), _state())
 
 
-def traversal_stage_ops(n_boxes):
+def traversal_stage_ops(n_boxes, measure=_count):
     """The joystick traversal stage cost of _trav_kernel (no gait term)."""
     from lifelike_tpu.costs.traversal import TraversalWeights
     from lifelike_tpu.ops import traversal_pallas as TP
@@ -97,10 +136,10 @@ def traversal_stage_ops(n_boxes):
         return cost + w.clearance * TP._clearance_cost(s, bx, w.crawl_gap)
 
     z = jnp.zeros((1, 1), jnp.float32)
-    return _count(stage, _state(), (z + 3.0, z), z + 1.5)
+    return measure(stage, _state(), (z + 3.0, z), z + 1.5)
 
 
-def chase_stage_ops(n_boxes):
+def chase_stage_ops(n_boxes, measure=_count):
     """The chase stage cost of _chase_kernel (one role mix, no gait term)."""
     from lifelike_tpu.costs.chase import ChaseWeights
     from lifelike_tpu.ops import scalar_phys as SP
@@ -130,7 +169,7 @@ def chase_stage_ops(n_boxes):
         return cost + 0.5 * TP._clearance_cost(s, bx)
 
     z = jnp.zeros((1, 1), jnp.float32)
-    return _count(stage, _state(), (z + 1.0, z), (z, z + 2.0), z + 1.0)
+    return measure(stage, _state(), (z + 1.0, z), (z, z + 2.0), z + 1.0)
 
 
 def _count_nested(jaxpr, mult=1):
@@ -194,18 +233,21 @@ def main():
         r, n = pgs_ops(boxes)
         print(json.dumps({"config": f"K5 PGS sweep, {r} rows, per element per iteration",
                           "ops": n, "per_row": n / r}))
+    both = lambda fn, *a: (fn(*a), fn(*a, measure=_depth))
     rows = [
-        ("K1 plane, substeps 10, mass_freeze 10", physics_ops(10, 10, 0), 0),
-        ("K2 8 boxes, substeps 10, mass_freeze 10", physics_ops(10, 10, 8),
-         traversal_stage_ops(8)),
+        ("K1 plane, substeps 10, mass_freeze 10", both(physics_ops, 10, 10, 0), (0, 0)),
+        ("K2 8 boxes, substeps 10, mass_freeze 10", both(physics_ops, 10, 10, 8),
+         both(traversal_stage_ops, 8)),
     ]
     for sub, mf in ((10, 10), (20, 1)):
-        phys = physics_ops(sub, mf, 4)
-        rows.append((f"K3 4 boxes, substeps {sub}, mass_freeze {mf}", phys, 0))
-        rows.append((f"K4 4 boxes, substeps {sub}, mass_freeze {mf}", phys, chase_stage_ops(4)))
-    for name, phys, stage in rows:
+        phys = both(physics_ops, sub, mf, 4)
+        rows.append((f"K3 4 boxes, substeps {sub}, mass_freeze {mf}", phys, (0, 0)))
+        rows.append((f"K4 4 boxes, substeps {sub}, mass_freeze {mf}", phys,
+                     both(chase_stage_ops, 4)))
+    for name, (phys, phys_d), (stage, stage_d) in rows:
         print(json.dumps({"config": name, "physics_ops": phys, "stage_ops": stage,
-                          "total": phys + stage}))
+                          "total": phys + stage, "physics_depth": phys_d,
+                          "stage_depth": stage_d}))
 
 
 if __name__ == "__main__":
