@@ -9,15 +9,14 @@ result line:
      clock);
   2. the build of the six CUDA kernels (one nvcc per source, started
      together; wall time, ptxas registers/spills, runtime registers, local
-     bytes and resident blocks per SM; for K3 and K4 also the lanes per
-     plan / candidate, the candidates per block and the warps per SM at the
-     chase solve's widths): K1 the PMC tracking rollout, K2 the EPMC
-     traversal rollout with box contact, K3 the SEPMC opponent plan rollout
-     and K4 the SEPMC chase rollout (a group of lanes per plan / candidate:
-     K3 eight, two per leg; K4 four, one per leg), K5 the hard-contact
-     plant's PGS
-     sweep (float32 and float64, 60 and 129 rows), K6 the iLQR Riccati
-     backward sweep (float32 and float64, its dynamic shared memory);
+     bytes and resident blocks per SM; for K1-K4 also the lanes per
+     candidate / plan, the candidates per block and the warps per SM at the
+     solves' widths): K1 the PMC tracking rollout, K2 the EPMC traversal
+     rollout with box contact, K3 the SEPMC opponent plan rollout and K4 the
+     SEPMC chase rollout (each candidate / plan on a group of lanes of one
+     warp), K5 the hard-contact plant's PGS sweep (float32 and float64, 60
+     and 129 rows), K6 the iLQR Riccati backward sweep (float32 and float64,
+     its dynamic shared memory);
   3. K1 vs its plain PyTorch version, float32, at the JAX kernel test's
      shape (H 3, substeps 2, mass_freeze 1), population 4096, rtol=atol=2e-4;
   4. K1 vs plain version, float64, rtol=atol=1e-6, at the headline solve
@@ -89,9 +88,9 @@ result line:
      chase kernels at substeps 10 on the 4-wall arena as bench.py's
      bench_sepmc): each kernel, its plain version and its bound on this
      card, K3 at S = 1 and S = 16; then each kernel at the closed loops'
-     setting (mass_freeze 1; the chase kernels at substeps 20), K3 and K4
-     also beside their chain floor (the dependency depth of a control step
-     x H x 4 cycles at the card's maximum SM clock); K5 (device
+     setting (mass_freeze 1; the chase kernels at substeps 20), K1-K4 at
+     both settings beside their chain floor (the dependency depth of a
+     control step x H x 4 cycles at the card's maximum SM clock); K5 (device
      time from torch.profiler, and the wrapper call) at bench.py
      bench_impulse's shape (B 256 standing robots, 60 rows, 10 iterations)
      and for one robot on the 129-row hurdle system, and the whole
@@ -106,18 +105,19 @@ kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
 non-zero without a result when no card (or no lifelike_tpu_torch beside
 this file) is present.
 
-  python3 chip_smoke.py --chase_timing [--root DIR] [--group K3=G] [--group K4=G] [--loop]
+  python3 chip_smoke.py --timing [--root DIR] [--group Kn=G ...] [--loop TASK ...]
 
-runs only phase 11's chase timing (K3 at S = 1 and 16, K4; headline and
-chase-plant settings, plain versions, bounds) of the checkout DIR (default:
-this one), importing DIR's chip_smoke.py and lifelike_tpu_torch, so an
-older commit unpacked with `git archive` into a directory that .gitignore
-lists is timed by its own code; two commits are compared by one such run
-per checkout in one command on one card, in turns (parent, change, change,
-parent). --group K3=G (K4=G) builds K3 (K4) with its lane group kGroup set
-to G, 4 or 8 (a copy of DIR's csrc/ with that constant rewritten, built
-under its own hash). --loop adds phase 10's SEPMC closed loop and its solve
-latency. Ends with one JSON line of the times.
+runs only phase 11's timing of K1-K4 (K1, K2 and K4 at the headline and
+closed-loop settings, K3 at S = 1 and 16; plain versions, bounds, chain
+floors) of the checkout DIR (default: this one), importing DIR's
+chip_smoke.py and lifelike_tpu_torch, so an older commit unpacked with
+`git archive` into a directory that .gitignore lists is timed by its own
+code; two commits are compared by one such run per checkout in one command
+on one card, in turns (parent, change, change, parent). --group Kn=G (n 1
+to 4) builds that kernel with its lane group kGroup set to G, 4 or 8 (a
+copy of DIR's csrc/ with that constant rewritten, built under its own
+hash). --loop TASK (pmc, epmc or sepmc) adds that closed loop of phases
+8-10 and its solve latency. Ends with one JSON line of the times.
 """
 import importlib.util
 import json
@@ -161,21 +161,25 @@ RICCATI_N, RICCATI_M, RICCATI_S = 37, 12, HYB_REFINE + 1
 # n 37, m 12: a length-K dot as K multiplies and K - 1 adds; the six input
 # blocks read once, the two gains written once)
 RICCATI_OPS_PER_STEP, RICCATI_BYTES_PER_STEP = 383995, 15324
-# Dependency depth of one control step at the chase kernels' settings,
-# printed by tools/kernel_op_counts.py (physics_depth: the longest chain of
-# dependent arithmetic primitives of the traced control_step, the box axis
-# once), keyed by (substeps, mass_freeze). A rollout of H strictly
-# sequential control steps takes at least depth x H x CHAIN_CYCLES cycles.
-CHAIN_DEPTH = {(10, 10): 1410, (20, 1): 2820}
+# Dependency depth of one control step, printed by tools/kernel_op_counts.py
+# (physics_depth: the longest chain of dependent arithmetic primitives of
+# the traced control_step, the box axis once), keyed by (kernel, substeps,
+# mass_freeze): K1 plane contact, K2 8 boxes, K3 / K4 the 4-wall arena. A
+# rollout of H strictly sequential control steps takes at least depth x H x
+# CHAIN_CYCLES cycles.
+CHAIN_DEPTH = {("K1", 10, 10): 1228, ("K1", 10, 1): 1390, ("K2", 10, 10): 1410,
+               ("K2", 10, 1): 1410, ("K3", 10, 10): 1410, ("K3", 20, 1): 2820,
+               ("K4", 10, 10): 1410, ("K4", 20, 1): 2820}
 CHAIN_CYCLES = 4  # latency of a dependent FP32 / FP64 operation on the H100
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 PEAK_FP64_FLOPS = 34e12  # H100 SXM, FP64 outside the tensor cores (NVIDIA's data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 KERNELS = {
-    "K1": dict(name="rollout_tracking_fused (K1 with K0 inlined)",
+    "K1": dict(name="rollout_tracking_fused (K1, eight lanes per candidate, K0 inlined)",
                source="lifelike_tpu_torch/csrc/rollout_tracking.cu",
                replaces="lifelike_tpu/ops/rollout_pallas.py:202"),
-    "K2": dict(name="rollout_traversal_fused (K2 with K0 and box contact inlined)",
+    "K2": dict(name="rollout_traversal_fused (K2, eight lanes per candidate, K0 and box contact "
+                    "inlined)",
                source="lifelike_tpu_torch/csrc/rollout_traversal.cu",
                replaces="lifelike_tpu/ops/traversal_pallas.py:626"),
     "K3": dict(name="rollout_plan_fused (K3, eight lanes per plan, K0 and box contact inlined)",
@@ -215,32 +219,31 @@ def sm_clock_mhz():
     return float(out.stdout.strip().splitlines()[0])
 
 
-def chain_floor(key, substeps, mass_freeze, kernel_ms):
-    """Print and return the chain floor (ms) of K3 / K4 at one setting."""
-    depth, mhz = CHAIN_DEPTH[(substeps, mass_freeze)], sm_clock_mhz()
+def chain_floor(kernel, substeps, mass_freeze, kernel_ms, label=None):
+    """Print and return the chain floor (ms) of one of K1-K4 at one setting."""
+    depth, mhz = CHAIN_DEPTH[(kernel, substeps, mass_freeze)], sm_clock_mhz()
     floor_ms = depth * HORIZON * CHAIN_CYCLES / (mhz * 1e3)
-    say(f"chain floor {key} substeps {substeps} mass_freeze {mass_freeze}: {depth} levels x H "
+    say(f"chain floor {label or kernel} substeps {substeps} mass_freeze {mass_freeze}: {depth} "
+        f"levels x H "
         f"{HORIZON} x {CHAIN_CYCLES} cycles / {mhz:g} MHz = {floor_ms:.4f} ms | kernel "
         f"{kernel_ms:.4f} ms, {kernel_ms / floor_ms:.2f}x the floor")
     return floor_ms
 
 
 def group_geometry(key, attrs):
-    """K3 / K4's launch at the chase solve's widths (K3: S 1 and SWEEP_S
-    plans; K4: CHASE_POP candidates): lanes per plan / candidate, blocks,
-    warps and SMs used, beside the warps an SM can hold."""
+    """A rollout kernel's launch at its solve's widths (K1, K2: POP
+    candidates; K3: S 1 and SWEEP_S plans; K4: CHASE_POP candidates): lanes
+    per candidate / plan, blocks, warps and SMs used, beside the warps an SM
+    can hold."""
     import torch
 
-    from lifelike_tpu_torch.ops import traversal_cuda as tc
-
-    kernel = tc.PLAN_KERNEL if key == "K3" else tc.CHASE_KERNEL
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     resident = attrs["blocks_per_sm"] * attrs["block"] // 32
     parts = []
-    for n in ((1, SWEEP_S) if key == "K3" else (CHASE_POP,)):
-        geo = tc.launch_geometry(kernel, n)
-        warps = geo.blocks * geo.threads // 32
-        parts.append(f"at {n}: {geo.blocks} blocks = {warps} warps on {min(geo.blocks, sms)} of "
+    for n in {"K1": (POP,), "K2": (POP,), "K3": (1, SWEEP_S), "K4": (CHASE_POP,)}[key]:
+        blocks = -(-n // attrs["per_block"])
+        warps = blocks * attrs["block"] // 32
+        parts.append(f"at {n}: {blocks} blocks = {warps} warps on {min(blocks, sms)} of "
                      f"{sms} SMs, {warps / sms:.2f} warps/SM of {resident} resident")
     what = "plan" if key == "K3" else "candidate"
     return (f"{attrs['group']} lanes per {what}, {attrs['per_block']} {what}s per "
@@ -1290,6 +1293,57 @@ def time_kernel(key, kernel_fn, plain_fn, exact_fn, nbytes, lanes=POP, label=Non
                 library_ms=None), exact_ms
 
 
+def model_len():
+    """Values of the packed float32 model constants (the kernels' model read)."""
+    import torch
+
+    from lifelike_tpu_torch.ops import rollout_cuda
+    from lifelike_tpu_torch.physics import batched as B
+    from lifelike_tpu_torch.robot.model import build_max_model
+
+    c = B.tl_constants(build_max_model(), dtype=torch.float32, device=torch.device("cuda"))
+    return rollout_cuda.pack_model(c).numel()
+
+
+def time_rollouts(smoke):
+    """K1 and K2 at the headline shape (PMC; the EPMC solve's kernel call:
+    joystick, gait_weight 0, constant reference, as bench.py bench_epmc's
+    fused row) and at the closed loops' mass_freeze 1, each beside its chain
+    floor at both, built from `smoke`'s input makers and timer: this module,
+    or an older checkout's chip_smoke.py in the --timing mode (which has the
+    same solve_inputs, traversal_inputs and time_kernel). Returns ({key:
+    kernels-line timing}, {key: ms at mass_freeze 1})."""
+    import torch
+
+    from lifelike_tpu_torch.ops import rollout_cuda
+    from lifelike_tpu_torch.ops import traversal_cuda as tc
+    from lifelike_tpu_torch.solver import rollout_tl
+
+    model_n = model_len()
+    c, params, tl, u, ref = smoke.solve_inputs(torch.float32, HORIZON, SUBSTEPS, SUBSTEPS, POP, 3)
+    c1, params1, tl1, u1, ref1 = smoke.solve_inputs(torch.float32, HORIZON, SUBSTEPS, 1, POP, 3)
+    rows, exact = {}, {}
+    rows["K1"], exact["K1"] = smoke.time_kernel(
+        "K1", lambda: rollout_cuda.rollout_tracking_fused(c, params, tl, u, ref),
+        lambda: rollout_tl.rollout_tracking(c, params, tl, u, ref),
+        lambda: rollout_cuda.rollout_tracking_fused(c1, params1, tl1, u1, ref1),
+        4 * (u.numel() + 37 + HORIZON * 64 + model_n + POP))
+    targs = smoke.traversal_inputs(torch.float32, HORIZON, SUBSTEPS, SUBSTEPS, POP, 14,
+                                   gait=False)
+    targs1 = smoke.traversal_inputs(torch.float32, HORIZON, SUBSTEPS, 1, POP, 14, gait=False)
+    rest, kw = ("joystick", 1000), dict(gait_weight=0.0)
+    u, table = targs[3], targs[4]
+    rows["K2"], exact["K2"] = smoke.time_kernel(
+        "K2", lambda: tc.rollout_traversal_fused(*targs, *rest, **kw),
+        lambda: tc.rollout_traversal_plain(*targs, *rest, **kw),
+        lambda: tc.rollout_traversal_fused(*targs1, *rest, **kw),
+        4 * (u.numel() + 37 + HORIZON * 64 + tc.TASK_WIDTH + table.numel() + model_n + POP))
+    for key in rows:
+        chain_floor(key, SUBSTEPS, SUBSTEPS, rows[key]["ms"])
+        chain_floor(key, SUBSTEPS, 1, exact[key])
+    return rows, exact
+
+
 def time_chase(model_n):
     """K3 (S = 1 and SWEEP_S plans) and K4 at the chase solve's kernel calls
     (bench.py bench_sepmc's fused row): the 4-wall arena, constant
@@ -1320,8 +1374,8 @@ def time_chase(model_n):
         b1 = bound(OPS_PER_LANE_STEP_CHASE_PLANT["K3"] * n * HORIZON, 1)[0]
         say(f"bound K3 S={n} at the chase plant: {b1:.6f} ms (operations) | kernel at "
             f"{100 * b1 / exact_ms:.4f}% of it")
-        chain_floor(f"K3 S={n}", SUBSTEPS, SUBSTEPS, t["ms"])
-        chain_floor(f"K3 S={n}", CHASE_SUBSTEPS, 1, exact_ms)
+        chain_floor("K3", SUBSTEPS, SUBSTEPS, t["ms"], f"K3 S={n}")
+        chain_floor("K3", CHASE_SUBSTEPS, 1, exact_ms, f"K3 S={n}")
         timing["K3" if n == 1 else f"K3 S={n}"] = t
     role = torch.tensor(True, device=u.device)
     t, exact_ms = time_kernel(
@@ -1355,7 +1409,7 @@ def main():
               file=sys.stderr)
         return 2
     from lifelike_tpu_torch.ops import cuda_build, pgs_cuda, rollout_cuda, traversal_cuda
-    from lifelike_tpu_torch.solver import riccati_cuda, rollout_tl
+    from lifelike_tpu_torch.solver import riccati_cuda
 
     t_start = time.perf_counter()
     # 1. device
@@ -1409,12 +1463,7 @@ def main():
         for dt in (torch.float32, torch.float64):
             a = (rollout_cuda.kernel_attributes(dt, HORIZON) if key == "K1"
                  else tc.kernel_attributes(dt, HORIZON, n_boxes, kernel))
-            if key in ("K3", "K4"):
-                say(f"runtime {key} {str(dt).replace('torch.', '')}: {a} | "
-                    + group_geometry(key, a))
-                continue
-            say(f"runtime {key} {str(dt).replace('torch.', '')}: {a} | candidates/SM at {POP}: "
-                f"{POP / 132:.2f} of {a['blocks_per_sm'] * a['block']} resident")
+            say(f"runtime {key} {str(dt).replace('torch.', '')}: {a} | " + group_geometry(key, a))
 
     # 3. / 4. K1 vs its plain version
     err = {"K1": compare("check K1 f32", torch.float32, 3, 2, 1, 2e-4, seed=1)}
@@ -1506,27 +1555,8 @@ def main():
     compare_riccati_loop(cap.args)
 
     # 11. timings at the headline solve shapes
-    c, params, tl, u, ref = solve_inputs(torch.float32, HORIZON, SUBSTEPS, SUBSTEPS, POP, 3)
-    c1, params1, tl1, u1, ref1 = solve_inputs(torch.float32, HORIZON, SUBSTEPS, 1, POP, 3)
-    model_n = rollout_cuda.pack_model(c).numel()
-    timing = {"K1": time_kernel(
-        "K1", lambda: rollout_cuda.rollout_tracking_fused(c, params, tl, u, ref),
-        lambda: rollout_tl.rollout_tracking(c, params, tl, u, ref),
-        lambda: rollout_cuda.rollout_tracking_fused(c1, params1, tl1, u1, ref1),
-        4 * (u.numel() + 37 + HORIZON * 64 + model_n + POP))[0]}
-    # the EPMC solve's kernel call: joystick, gait_weight 0, constant reference
-    # (bench.py bench_epmc's fused row)
-    targs = traversal_inputs(torch.float32, HORIZON, SUBSTEPS, SUBSTEPS, POP, 14, gait=False)
-    targs1 = traversal_inputs(torch.float32, HORIZON, SUBSTEPS, 1, POP, 14, gait=False)
-    rest = ("joystick", 1000)
-    kw = dict(gait_weight=0.0)
-    u, table = targs[3], targs[4]
-    timing["K2"] = time_kernel(
-        "K2", lambda: tc.rollout_traversal_fused(*targs, *rest, **kw),
-        lambda: tc.rollout_traversal_plain(*targs, *rest, **kw),
-        lambda: tc.rollout_traversal_fused(*targs1, *rest, **kw),
-        4 * (u.numel() + 37 + HORIZON * 64 + tc.TASK_WIDTH + table.numel() + model_n + POP))[0]
-    timing.update(time_chase(model_n))
+    timing, _ = time_rollouts(sys.modules[__name__])
+    timing.update(time_chase(model_len()))
     timing["K5"] = time_pgs()
     timing["K6"] = time_riccati()
     hybrid_breakdown(timing["K6"]["ms"])
@@ -1543,17 +1573,17 @@ def main():
     return 0
 
 
-def chase_timing(argv):
-    """The --chase_timing mode (see the module's docstring)."""
+def timing_mode(argv):
+    """The --timing mode (see the module's docstring)."""
     import argparse
     import os
     import re
     import shutil
 
-    ap = argparse.ArgumentParser(prog="chip_smoke.py --chase_timing")
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --timing")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--group", action="append", default=[], metavar="K3=G")
-    ap.add_argument("--loop", action="store_true")
+    ap.add_argument("--group", action="append", default=[], metavar="Kn=G")
+    ap.add_argument("--loop", action="append", default=[], choices=("pmc", "epmc", "sepmc"))
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -1569,14 +1599,14 @@ def chase_timing(argv):
         return 2
     from lifelike_tpu_torch.ops import cuda_build, rollout_cuda
     from lifelike_tpu_torch.ops import traversal_cuda as tc
-    from lifelike_tpu_torch.physics import batched as B
-    from lifelike_tpu_torch.robot.model import build_max_model
 
     if not os.path.dirname(os.path.abspath(tc.__file__)).startswith(root):
         raise SystemExit(f"lifelike_tpu_torch imported from {tc.__file__}, not from {root}")
     smi = nvidia_smi()
-    say(f"chase timing: {root} | {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | max SM "
-        f"clock {sm_clock_mhz():g} MHz")
+    say(f"timing: {root} | {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | max SM clock "
+        f"{sm_clock_mhz():g} MHz")
+    kernels = {"K1": rollout_cuda.KERNEL, "K2": tc.KERNEL, "K3": tc.PLAN_KERNEL,
+               "K4": tc.CHASE_KERNEL}
     groups = {k: int(g) for k, g in (a.split("=") for a in args.group)}
     if groups:
         variant = os.path.join(cuda_build.BUILD_DIR, "csrc_" + "_".join(
@@ -1584,8 +1614,7 @@ def chase_timing(argv):
         shutil.rmtree(variant, ignore_errors=True)
         shutil.copytree(cuda_build.CSRC_DIR, variant)
         for key, g in groups.items():
-            kernel = {"K3": tc.PLAN_KERNEL, "K4": tc.CHASE_KERNEL}[key]
-            path = os.path.join(variant, kernel.source)
+            path = os.path.join(variant, kernels[key].source)
             with open(path) as f:
                 text, n = re.subn(r"constexpr int kGroup = \d+;", f"constexpr int kGroup = {g};",
                                   f.read())
@@ -1593,30 +1622,40 @@ def chase_timing(argv):
                 raise SystemExit(f"{path}: no single `constexpr int kGroup = ...;` to rewrite")
             with open(path, "w") as f:
                 f.write(text)
-            spec = tc._LIB_SPECS[kernel]
-            tc._LIB_SPECS[kernel] = spec._replace(
-                group=g, per_block=spec.per_block if key == "K3" else tc.BLOCK // g)
+            if key == "K1":
+                rollout_cuda.GROUP = g
+            else:
+                spec = tc._LIB_SPECS[kernels[key]]
+                tc._LIB_SPECS[kernels[key]] = spec._replace(
+                    group=g, per_block=spec.per_block if key == "K3" else tc.BLOCK // g)
         cuda_build.CSRC_DIR = variant
-    for kernel in (tc.PLAN_KERNEL, tc.CHASE_KERNEL):
-        info = tc.build(kernel)
-        for sym, v in sorted(tc.ptxas_summary(info.ptxas, kernel).items()):
-            say(f"ptxas {kernel.source} {'f64' if 'IdEE' in sym else 'f32'}: {v}")
-    c = B.tl_constants(build_max_model(), dtype=torch.float32, device=torch.device("cuda"))
-    timing = smoke.time_chase(rollout_cuda.pack_model(c).numel())
+    for key, info in zip(kernels, cuda_build.build_all(list(kernels.values()))):
+        if key == "K1":
+            rollout_cuda.build()
+            ptxas = rollout_cuda.ptxas_summary(info.ptxas)
+        else:
+            tc.build(kernels[key])
+            ptxas = tc.ptxas_summary(info.ptxas, kernels[key])
+        for sym, v in sorted(ptxas.items()):
+            say(f"ptxas {key} {'f64' if 'IdEE' in sym else 'f32'}: {v}")
+    rows, exact = time_rollouts(smoke)
+    rows.update(smoke.time_chase(model_len()))
     out = {"root": root, "groups": groups, "smi": smi,
            "timing": {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms")}
-                      for k, v in timing.items()}}
-    if args.loop:
-        run, launches = smoke.closed_loop("sepmc", (tc.rollout_plan_fused, tc.rollout_chase_fused),
-                                          "closed loop sepmc")
+                      for k, v in rows.items()},
+           "closed_loop_setting_ms": exact}
+    fns = {"pmc": (rollout_cuda.rollout_tracking_fused,), "epmc": (tc.rollout_traversal_fused,),
+           "sepmc": (tc.rollout_plan_fused, tc.rollout_chase_fused)}
+    for task in args.loop:
+        run, launches = smoke.closed_loop(task, fns[task], f"closed loop {task}")
         t_ms = [1e3 * t for t in run["t_solve"][1:]]
-        out["sepmc"] = {"solve_p50_ms": statistics.median(t_ms), "solve_max_ms": max(t_ms),
-                        "launches": launches}
+        out[task] = {"solve_p50_ms": statistics.median(t_ms), "solve_max_ms": max(t_ms),
+                     "launches": launches}
     say(json.dumps(out))
     return 0
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--chase_timing"]:
-        sys.exit(chase_timing(sys.argv[2:]))
+    if sys.argv[1:2] == ["--timing"]:
+        sys.exit(timing_mode(sys.argv[2:]))
     sys.exit(main())

@@ -29,7 +29,7 @@
 // of each substep, in registers. S plans run on S warps on separate SMs
 // (the scenario sweep's 16 fit side by side). On the H100 kGroup 8 took
 // 0.64-0.65x the time of kGroup 4, K4's four lanes per plan (PERF.md;
-// `chip_smoke.py --chase_timing --group K3=4` builds the other).
+// `chip_smoke.py --timing --group K3=4` builds the other).
 //
 // Built with plain nvcc into a shared library with a C ABI (loaded with
 // ctypes by ops/traversal_cuda.py); float and double instances are exported.

@@ -12,20 +12,25 @@
 // lifelike_tpu_torch/solver/rollout_tl.py::rollout_tracking on
 // physics/engine_tl.py::control_step.
 //
-// What bounds it on an H100: FP32 issue and registers, not bytes. At the
-// headline shape (population 4096, H 50, substeps 10) the kernel reads the
-// 9.8 MB of controls once and writes 16 KB of costs, against roughly 52k
-// scalar operations per candidate per control step and no matrix product
-// anywhere, so the tensor cores have nothing to do. The design follows:
-// one thread per candidate keeps the whole 37-float state on chip for the
-// full horizon (a candidate's steps are strictly sequential); controls are
-// read coalesced (candidate index fastest); the packed (H, 64) reference and
-// the model constants are staged once per block in shared memory; blocks of
-// 32 threads spread the 4096 candidates of a solve over 128 of the 132 SMs.
-// The mass factors (~380 values per candidate) do not fit the 255-register
-// budget next to the state and the substep temporaries; they live in
-// thread-local memory (L1-resident at this occupancy), and ptxas reports
-// the spill. Giving a candidate more than one thread is later work.
+// What bounds it on an H100: latency, not bytes or the operation rate. At
+// the headline shape (population 4096, H 50, substeps 10) the kernel reads
+// the 9.8 MB of controls once and writes 16 KB of costs, against roughly
+// 52k scalar operations per candidate per control step and no matrix
+// product anywhere, so the tensor cores have nothing to do; each
+// candidate's H x substeps substeps form one dependent chain. The design is
+// the chase kernels': a group of kGroup lanes of one warp rolls each
+// candidate (scalar_phys.cuh substep_group, plane contact only: lane l the
+// leg l at G 4, two lanes per leg splitting the foot's and the wheel's
+// contact at G 8), its leg's state, kinematics and mass factors in
+// registers; cross-leg sums by __shfl_sync in leg order; the 6x6 base solve
+// on every lane. The tracking cost runs each lane's leg FK and joint terms
+// and sums the legs in leg order. A block is one warp; lane l reads its
+// leg's three control columns (candidate index fastest); the packed (H, 64)
+// reference and the model constants are staged once per block in shared
+// memory (~15 KB in float32 at H 50), so registers, not shared memory, set
+// the residency. On the H100 kGroup 8 took 0.95x the time of kGroup 4 at
+// mass_freeze 10 and the same at mass_freeze 1 (PERF.md; `chip_smoke.py
+// --timing --group K1=4` builds the other).
 //
 // Built with plain nvcc into a shared library with a C ABI (loaded with
 // ctypes by ops/rollout_cuda.py); float and double instances are exported.
@@ -36,7 +41,9 @@
 
 namespace lifelike {
 
-constexpr int kBlock = 32;     // threads (= candidates) per block
+constexpr int kGroup = 8;                       // lanes per candidate: two per leg
+constexpr int kBlock = 32;                      // threads per block: one warp
+constexpr int kCandPerBlock = kBlock / kGroup;  // candidates per block
 constexpr int kRefWidth = 64;  // packed reference row (rollout_pallas.py:43-52)
 constexpr int kOffTarget = 0;
 constexpr int kOffJP = 12;
@@ -48,27 +55,30 @@ constexpr int kOffBLV = 55;
 constexpr int kOffBAV = 58;
 constexpr int kParamLen = 20;  // host double parameter vector, see params_from_host
 
-// rollout_tl.tracking_cost_step for one candidate; r = packed reference row
-template <typename T>
-__device__ T tracking_cost(const ModelConst<T>& M, const Params<T>& P, const State<T>& s,
-                           const T* r) {
+// rollout_tl.tracking_cost_step for lane g.rank of a candidate's group;
+// r = packed reference row. Every lane returns the same value.
+template <typename T, int G>
+__device__ __forceinline__ T tracking_cost(const ModelConst<T>& M, const Params<T>& P,
+                                           const Group<G>& g, const LaneState<T>& s, const T* r) {
   T Rb[3][3];
   quat_to_mat(s.q, Rb);
   T e_jp = T(0), e_jv = T(0), e_ee = T(0);
-#pragma unroll 1
-  for (int leg = 0; leg < 4; ++leg) {
+  {
     LegKin<T> k;
-    leg_fk(M, leg, Rb, s, k);
+    leg_fk(M, g.leg, Rb, s.pb, s.vb, s.wb, s.jq, s.jqd, k);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      const T d = s.jq[leg][j] - r[kOffJP + leg * 3 + j];
+      const T d = s.jq[j] - r[kOffJP + g.leg * 3 + j];
       e_jp += d * d;
-      const T dv = s.jqd[leg][j] - r[kOffJV + leg * 3 + j];
+      const T dv = s.jqd[j] - r[kOffJV + g.leg * 3 + j];
       e_jv += dv * dv;
-      const T df = k.pf[j] - r[kOffFoot + leg * 3 + j];
+      const T df = k.pf[j] - r[kOffFoot + g.leg * 3 + j];
       e_ee += df * df;
     }
   }
+  e_jp = legs_sum(g, e_jp);
+  e_jv = legs_sum(g, e_jv);
+  e_ee = legs_sum(g, e_ee);
   T e_bp = T(0), e_lv = T(0), e_av = T(0);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -111,43 +121,26 @@ __global__ void __launch_bounds__(kBlock)
   for (int i = threadIdx.x; i < P.horizon * kRefWidth; i += blockDim.x) s_ref[i] = ref[i];
   __syncthreads();
 
-  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k >= n) return;
+  const long long k = static_cast<long long>(blockIdx.x) * kCandPerBlock + threadIdx.x / kGroup;
+  if (k >= n) return;  // the whole group: its lanes share k
+  const Group<kGroup> g = make_group<kGroup>();
   const ModelConst<T>& M = *reinterpret_cast<const ModelConst<T>*>(s_model);
 
-  State<T> s;
-  // the shared start state: pb 3, q 4, vb 3, wb 3, jq 12, jqd 12 (37)
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    s.pb[i] = state[i];
-    s.vb[i] = state[7 + i];
-    s.wb[i] = state[10 + i];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) s.q[i] = state[3 + i];
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      s.jq[l][j] = state[13 + l * 3 + j];
-      s.jqd[l][j] = state[25 + l * 3 + j];
-    }
-
-  Frozen<T> fr;
+  LaneState<T> s;
+  load_lane_state(state, g.leg, s);
+  LaneFrozen<T> fr;
   T total = T(0);
 #pragma unroll 1
   for (int t = 0; t < P.horizon; ++t) {
     const T* r = s_ref + t * kRefWidth;
-    T target[4][3];
+    T target[3];
 #pragma unroll
-    for (int l = 0; l < 4; ++l)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        target[l][j] = r[kOffTarget + l * 3 + j] + controls[(t * 12LL + l * 3 + j) * n + k];
-    control_step(M, P, s, target, fr);
-    total += tracking_cost(M, P, s, r);
+    for (int j = 0; j < 3; ++j)
+      target[j] = r[kOffTarget + g.leg * 3 + j] + controls[(t * 12LL + g.leg * 3 + j) * n + k];
+    control_step_group<T, false, kGroup>(M, P, g, s, target, fr, nullptr, 0);
+    total += tracking_cost(M, P, g, s, r);
   }
-  cost[k] = total;
+  if (g.rank == 0) cost[k] = total;
 }
 
 // hp: kp, kd, max_tau, mu, dt, kn, dn, v_slip, fric_visc_cap, ext[3],
@@ -180,7 +173,7 @@ int launch(const T* ref, const T* model, int model_n, const T* state, const T* c
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const unsigned grid = static_cast<unsigned>((n + kBlock - 1) / kBlock);
+  const unsigned grid = static_cast<unsigned>((n + kCandPerBlock - 1) / kCandPerBlock);
   rollout_tracking_kernel<T><<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       ref, model, state, controls, cost, n, P);
   return static_cast<int>(cudaGetLastError());
@@ -211,6 +204,7 @@ int attrs(int* num_regs, int* local_bytes, int* max_threads, int* blocks_per_sm,
 extern "C" {
 
 int lifelike_rollout_block_size() { return lifelike::kBlock; }
+int lifelike_rollout_group_size() { return lifelike::kGroup; }
 int lifelike_rollout_param_len() { return lifelike::kParamLen; }
 int lifelike_rollout_model_len_f32() { return lifelike::model_len<float>(); }
 int lifelike_rollout_model_len_f64() { return lifelike::model_len<double>(); }

@@ -18,20 +18,28 @@
 // (solver/rollout_tasks.py::rollout_traversal_gait on
 // physics/engine_tl.py::control_step).
 //
-// What bounds it on an H100: FP32 issue and registers, not bytes, as for
-// the tracking kernel (rollout_tracking.cu): the controls are read once,
-// the costs written once, and every control step costs ~10^5 scalar
-// operations per candidate, most of them the 14 contact spheres x K boxes
-// of SDF and friction arithmetic per substep. The design is K1's: one
-// thread per candidate keeps the state on chip for the whole horizon;
-// controls are read coalesced (candidate index fastest); the model
-// constants, the scenario's reference rows and its box table are staged
-// once per block in shared memory; the stage cost accumulates in
-// registers. The box loop stays rolled over the shared table and one
-// sphere's force is summed at a time, so the box contact adds per-box
-// temporaries, not K copies of them, to the register budget. The posture,
-// fall, clearance and gait terms live in task_cost.cuh, shared with the
-// chase kernel (rollout_chase.cu).
+// What bounds it on an H100: latency, not bytes or the operation rate. The
+// controls are read once and the costs written once, against ~1.6 x 10^5
+// scalar operations per candidate per control step, most of them the 14
+// contact spheres x K boxes of SDF and friction arithmetic per substep, and
+// each candidate's H x substeps substeps form one dependent chain. The
+// design is K4's (rollout_chase.cu): a group of kGroup lanes of one warp
+// rolls each candidate (scalar_phys.cuh substep_group: lane l the leg l at
+// G 4; at G 8 two lanes per leg, the foot's and the wheel's box loops
+// split, and the six trunk spheres one per lane), its leg's state,
+// kinematics and mass factors in registers; cross-leg sums by __shfl_sync
+// in leg order; the 6x6 base solve on every lane. A block is one warp, so
+// 4096 candidates make 4096 / kCandPerBlock blocks over all 132 SMs. Lane
+// l reads its leg's three control columns (candidate index fastest); the
+// model constants, the scenario's reference rows and its box table are
+// staged once per block in shared memory (~15 KB in float32 at H 50, K 8),
+// so registers, not shared memory, set the residency. The stage cost
+// accumulates in registers on every lane of the group and lane 0 writes
+// it. The box loop stays rolled over the shared table and one sphere's
+// force is summed at a time. The posture, fall, clearance and gait terms
+// live in task_cost.cuh, shared with K4. On the H100 kGroup 8 took 0.65x
+// the time of kGroup 4 (PERF.md; `chip_smoke.py --timing --group K2=4`
+// builds the other).
 //
 // Built with plain nvcc into a shared library with a C ABI (loaded with
 // ctypes by ops/traversal_cuda.py); float and double instances are exported.
@@ -43,8 +51,10 @@
 
 namespace lifelike {
 
-constexpr int kBlock = 32;     // threads (= candidates) per block
-constexpr int kTaskWidth = 8;  // target x, y, z, speed, pad
+constexpr int kGroup = 8;                       // lanes per candidate: two per leg
+constexpr int kBlock = 32;                      // threads per block: one warp
+constexpr int kCandPerBlock = kBlock / kGroup;  // candidates per block
+constexpr int kTaskWidth = 8;                   // target x, y, z, speed, pad
 constexpr int kParamLen = 43;  // host double parameter vector, see params_from_host
 
 // Traversal cost settings (costs/traversal.py TraversalWeights and the
@@ -59,11 +69,14 @@ struct TravParams {
   int n_boxes;
 };
 
-// One stage of rollout_tasks.rollout_traversal_gait's cost; last_d carries
-// the average-speed family's distance from one step to the next.
-template <typename T>
-__device__ T traversal_cost(const TravParams<T>& W, const State<T>& s, const T* r,
-                            const T* boxes, const T* task, T d0, T& last_d) {
+// One stage of rollout_tasks.rollout_traversal_gait's cost for lane g.rank
+// of a candidate's group; every lane returns the same value. last_d carries
+// the average-speed family's distance from one step to the next (on every
+// lane).
+template <typename T, int G>
+__device__ __forceinline__ T traversal_cost(const TravParams<T>& W, const Group<G>& g,
+                                            const LaneState<T>& s, const T* r, const T* boxes,
+                                            const T* task, T d0, T& last_d) {
   T Rb[3][3];
   quat_to_mat(s.q, Rb);
   // _direction_terms: the heading via atan2, as the plain version computes it
@@ -87,10 +100,10 @@ __device__ T traversal_cost(const TravParams<T>& W, const State<T>& s, const T* 
   // dense shaping on the signed speed
   cost = cost + (W.velocity * fabs_(spd_sg - tspd) / (T(1) + tspd) +
                  W.heading * (T(1) - align));
-  cost = cost + posture_cost(W.post, s);
+  cost = cost + posture_cost(W.post, g, s);
   cost = cost + W.fall * (fall_mask(Rb) ? T(1) : T(0));
   cost = cost + W.clearance * clearance_cost(s.pb, boxes, W.n_boxes, W.crawl_gap);
-  if (W.gait_weight != T(0)) cost = cost + W.gait_weight * gait_cost(s, r, W.gait_vel_weight);
+  if (W.gait_weight != T(0)) cost = cost + W.gait_weight * gait_cost(g, s, r, W.gait_vel_weight);
   return cost;
 }
 
@@ -106,8 +119,8 @@ __global__ void __launch_bounds__(kBlock)
   T* s_ref = s_model + model_len<T>();
   T* s_box = s_ref + P.horizon * kRefWidth;
   // a block lies inside one scenario (the wrapper makes per_scen a multiple
-  // of the block when there is more than one scenario)
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x;
+  // of the block's candidates when there is more than one scenario)
+  const long long first = static_cast<long long>(blockIdx.x) * kCandPerBlock;
   const long long scen = first / per_scen;
   const T* g_ref = ref + scen * P.horizon * kRefWidth;
   const T* g_box = boxes + scen * W.n_boxes * kBoxWidth;
@@ -116,35 +129,34 @@ __global__ void __launch_bounds__(kBlock)
   for (int i = threadIdx.x; i < W.n_boxes * kBoxWidth; i += blockDim.x) s_box[i] = g_box[i];
   __syncthreads();
 
-  const long long k = first + threadIdx.x;
-  if (k >= n) return;
+  const long long k = first + threadIdx.x / kGroup;
+  if (k >= n) return;  // the whole group: its lanes share k
+  const Group<kGroup> g = make_group<kGroup>();
   const ModelConst<T>& M = *reinterpret_cast<const ModelConst<T>*>(s_model);
   T tk[kTaskWidth];
 #pragma unroll
   for (int i = 0; i < kTaskWidth; ++i) tk[i] = task[scen * kTaskWidth + i];
 
-  State<T> s;
-  load_state(state, s);
+  LaneState<T> s;
+  load_lane_state(state, g.leg, s);
   const T d0x = tk[0] - s.pb[0];
   const T d0y = tk[1] - s.pb[1];
   const T d0 = at_least(fsqrt(d0x * d0x + d0y * d0y), T(1e-8));
   T last_d = d0;
 
-  Frozen<T> fr;
+  LaneFrozen<T> fr;
   T total = T(0);
 #pragma unroll 1
   for (int t = 0; t < P.horizon; ++t) {
     const T* r = s_ref + t * kRefWidth;
-    T target[4][3];
+    T target[3];
 #pragma unroll
-    for (int l = 0; l < 4; ++l)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        target[l][j] = r[kOffTarget + l * 3 + j] + controls[(t * 12LL + l * 3 + j) * n + k];
-    control_step<T, true>(M, P, s, target, fr, s_box, W.n_boxes);
-    total += traversal_cost(W, s, r, s_box, tk, d0, last_d);
+    for (int j = 0; j < 3; ++j)
+      target[j] = r[kOffTarget + g.leg * 3 + j] + controls[(t * 12LL + g.leg * 3 + j) * n + k];
+    control_step_group<T, true, kGroup>(M, P, g, s, target, fr, s_box, W.n_boxes);
+    total += traversal_cost(W, g, s, r, s_box, tk, d0, last_d);
   }
-  cost[k] = total;
+  if (g.rank == 0) cost[k] = total;
 }
 
 // hp: kp, kd, max_tau, mu, dt, kn, dn, v_slip, fric_visc_cap, ext[3],
@@ -190,7 +202,7 @@ int launch(const T* ref, const T* task, const T* boxes, const T* model, int mode
   if (n <= 0 || P.horizon <= 0 || P.substeps <= 0 || W.n_boxes < 0) return -3;
   if (n_scen <= 0 || n % n_scen != 0) return -4;
   const long long per_scen = n / n_scen;
-  if (n_scen > 1 && per_scen % kBlock != 0) return -5;
+  if (n_scen > 1 && per_scen % kCandPerBlock != 0) return -5;
   const size_t smem = smem_bytes<T>(P.horizon, W.n_boxes);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(rollout_traversal_kernel<T>,
@@ -198,7 +210,7 @@ int launch(const T* ref, const T* task, const T* boxes, const T* model, int mode
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const unsigned grid = static_cast<unsigned>((n + kBlock - 1) / kBlock);
+  const unsigned grid = static_cast<unsigned>((n + kCandPerBlock - 1) / kCandPerBlock);
   rollout_traversal_kernel<T><<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       ref, task, boxes, model, state, controls, cost, n, per_scen, P, W);
   return static_cast<int>(cudaGetLastError());
@@ -229,6 +241,7 @@ int attrs(int* num_regs, int* local_bytes, int* max_threads, int* blocks_per_sm,
 extern "C" {
 
 int lifelike_traversal_block_size() { return lifelike::kBlock; }
+int lifelike_traversal_group_size() { return lifelike::kGroup; }
 int lifelike_traversal_param_len() { return lifelike::kParamLen; }
 int lifelike_traversal_model_len_f32() { return lifelike::model_len<float>(); }
 int lifelike_traversal_model_len_f64() { return lifelike::model_len<double>(); }

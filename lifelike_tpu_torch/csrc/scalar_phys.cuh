@@ -1,5 +1,5 @@
-// Scalar MAX quadruped physics for one MPPI candidate per thread or per
-// group of lanes (K0).
+// Scalar MAX quadruped physics for one MPPI candidate rolled by a group of
+// lanes of one warp (K0).
 //
 // Replaces lifelike_tpu/ops/scalar_phys.py (control_step, substep,
 // freeze_mass, leg_fk, leg_bias, plane_contact_force, box_forces, _chol6,
@@ -20,25 +20,19 @@
 // memory, and the joint axes stay general (Rodrigues rotation with
 // precomputed K and K^2), exactly as the twin computes them.
 //
-// Two forms of the substep share the per-leg pieces (leg_fk, leg_factor,
-// leg_torques, sphere_force + add_contact, leg_bias, leg_rhs,
-// leg_joint_update, trunk_sphere):
-//   * `substep` / `control_step`: one thread rolls one candidate (K1, K2).
-//     The loops over the four legs stay rolled (`#pragma unroll 1`) to bound
-//     code size, so the per-leg rows they index with the runtime leg live in
-//     the thread's stack frame (local memory).
-//   * `substep_group` / `control_step_group`: a group of G lanes of one warp
-//     rolls one candidate (K3, K4). With G = 4 lane l owns leg l; with G = 8
-//     lanes 2l and 2l+1 both hold leg l and split its contact (the foot's
-//     box loop on the even lane, the wheel's on the odd one). A lane keeps
-//     its leg's kinematics, mass factors, joints and torques in registers,
-//     indexed by constants only. The six trunk spheres are spread over the
-//     lanes. The cross-leg sums (base wrench, RNEA bias, mass moments, Schur
-//     correction, the legs' right-hand-side terms) go through __shfl_sync
-//     on the group's mask, legs 0 to 3 in order, each leg's partial taken
-//     in the one-thread order. Every lane then factors and solves the 6x6
-//     base system and steps the base from the same values, so the lanes
-//     agree without a broadcast or a barrier.
+// A group of G lanes of one warp rolls one candidate (`substep_group` /
+// `control_step_group`, every rollout kernel). With G = 4 lane l owns leg
+// l; with G = 8 lanes 2l and 2l+1 both hold leg l and split its contact
+// (the foot's sphere on the even lane, the wheel's on the odd one). A lane
+// keeps its leg's kinematics, mass factors, joints and torques in
+// registers, indexed by constants only; the per-leg pieces (leg_fk,
+// leg_factor, leg_torques, sphere_force + add_contact, leg_bias, leg_rhs,
+// leg_joint_update) run once per lane. The six trunk spheres are spread
+// over the lanes. The cross-leg sums (base wrench, RNEA bias, mass
+// moments, Schur correction, the legs' right-hand-side terms) go through
+// __shfl_sync on the group's mask, legs 0 to 3 in order. Every lane then
+// factors and solves the 6x6 base system and steps the base from the same
+// values, so the lanes agree without a broadcast or a barrier.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -96,13 +90,8 @@ struct Params {
   int substeps, mass_freeze, horizon;
 };
 
-template <typename T>
-struct State {
-  T pb[3], q[4], vb[3], wb[3];
-  T jq[4][3], jqd[4][3];
-};
-
-// Mass-side quantities of one leg, referenced about Frozen::origin.
+// Mass-side quantities of one leg, referenced about the factors' origin
+// (LaneFrozen::origin).
 template <typename T>
 struct LegFrozen {
   T S[3][6];       // motion subspaces [a; a x (O - p)]
@@ -111,13 +100,6 @@ struct LegFrozen {
   T F[3][6];       // composite inertia x subspace
   T Minv[3][3];    // inverse of the 3x3 joint block
   T FtMinv[3][6];  // Minv @ F
-};
-
-template <typename T>
-struct Frozen {
-  T origin[3];
-  LegFrozen<T> leg[4];
-  T chol[21];  // packed lower Cholesky of the 6x6 Schur complement
 };
 
 // Per-leg forward kinematics (physics/batched.py fk, one leg).
@@ -301,12 +283,6 @@ __device__ __forceinline__ void leg_fk(const ModelConst<T>& M, int leg, const T 
   cross3(k.w[1], d, wxd);
 #pragma unroll
   for (int i = 0; i < 3; ++i) k.vw[i] = k.v[1][i] + wxd[i];
-}
-
-template <typename T>
-__device__ __forceinline__ void leg_fk(const ModelConst<T>& M, int leg, const T Rb[3][3],
-                                       const State<T>& s, LegKin<T>& k) {
-  leg_fk(M, leg, Rb, s.pb, s.vb, s.wb, s.jq[leg], s.jqd[leg], k);
 }
 
 // --------------------------------------------------------- inertia helpers
@@ -552,22 +528,6 @@ __device__ __forceinline__ void trunk_sphere(const T Rb[3][3], const T* pb, cons
   for (int i = 0; i < 3; ++i) {
     torque[i] += nm[i];
     force[i] += f[i];
-  }
-}
-
-// The six spheres' wrench, added to tau_b (one thread).
-template <typename T>
-__device__ __forceinline__ void trunk_box_wrench(const T Rb[3][3], const State<T>& s,
-                                                 const T* boxes, int n_boxes, const Params<T>& P,
-                                                 T* tau_b) {
-  T torque[3] = {T(0), T(0), T(0)}, force[3] = {T(0), T(0), T(0)};
-#pragma unroll 1
-  for (int sp = 0; sp < kTrunkSpheres; ++sp)
-    trunk_sphere(Rb, s.pb, s.vb, s.wb, sp, boxes, n_boxes, P, torque, force);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    tau_b[i] += torque[i];
-    tau_b[3 + i] += force[i];
   }
 }
 
@@ -846,95 +806,7 @@ __device__ __forceinline__ void base_step(const T* acc, const T* r, T dt, T* pb,
   for (int i = 0; i < 3; ++i) wb[i] = new_w[i];
 }
 
-// ------------------------------------------------------ one-thread substep
-
-// One 500 Hz substep. refactor: rebuild the mass factors about the current
-// base position first (substep i % mass_freeze == 0 of a control step).
-// kBoxes: contact also against the n_boxes rows of `boxes` (feet, wheels
-// and the trunk proxy); without it the code is the plane-only substep.
-template <typename T, bool kBoxes = false>
-__device__ void substep(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
-                        const T target[4][3], Frozen<T>& fr, bool refactor,
-                        const T* boxes = nullptr, int n_boxes = 0) {
-  T Rb[3][3];
-  quat_to_mat(s.q, Rb);
-
-  T h_tot[3] = {T(0), T(0), T(0)};
-  T Io_tot[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-  T corr[21];
-  if (refactor) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) fr.origin[i] = s.pb[i];
-#pragma unroll
-    for (int i = 0; i < 21; ++i) corr[i] = T(0);
-  }
-  const T* O = fr.origin;
-  T r[3], v_base[6];  // base spatial velocity at O and the gravity pseudo-acceleration
-  base_motion(s.pb, s.vb, s.wb, O, r, v_base);
-  const T a_grav[6] = {T(0), T(0), T(0), T(0), T(0), T(kGravity)};
-
-  T tau_b[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};  // contact wrench at O
-  T bias_b[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};  // sum of link RNEA forces
-  T tau_j[4][3];
-
-#pragma unroll 1
-  for (int leg = 0; leg < 4; ++leg) {
-    LegKin<T> k;
-    leg_fk(M, leg, Rb, s, k);
-    LegFrozen<T>& L = fr.leg[leg];
-    if (refactor) leg_factor(M, leg, k, O, L, h_tot, Io_tot, corr);
-    leg_torques(M, P, leg, s.jq[leg], s.jqd[leg], target[leg], tau_j[leg]);
-    T f[3];
-    sphere_force<T, kBoxes>(k.pf, k.vf, M.foot_radius, P, boxes, n_boxes, f);
-    add_contact<3>(k.pf, f, O, L, tau_b, tau_j[leg]);
-    sphere_force<T, kBoxes>(k.pw, k.vw, M.wheel_radius, P, boxes, n_boxes, f);
-    add_contact<2>(k.pw, f, O, L, tau_b, tau_j[leg]);
-    leg_bias(M, leg, L, s.jqd[leg], v_base, a_grav, tau_j[leg], bias_b);
-  }
-
-  if (kBoxes) trunk_box_wrench(Rb, s, boxes, n_boxes, P, tau_b);
-
-  T hb[3], Iob[6];
-  base_terms(M, Rb, s.pb, O, hb, Iob);
-  if (refactor) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) h_tot[i] += hb[i];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) Io_tot[i] += Iob[i];
-    finish_factor(M, h_tot, Io_tot, corr, fr.chol);
-  }
-  base_bias(M, hb, Iob, a_grav, v_base, bias_b);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) tau_b[3 + i] += P.ext[i];
-
-  // Schur solve against the (frozen) factors
-  T rhs[6];
-#pragma unroll
-  for (int a = 0; a < 6; ++a) rhs[a] = tau_b[a] - bias_b[a];
-#pragma unroll 1
-  for (int leg = 0; leg < 4; ++leg) leg_rhs(fr.leg[leg], tau_j[leg], rhs);
-  T acc[6];
-  chol6_solve(fr.chol, rhs, acc);
-
-#pragma unroll 1
-  for (int leg = 0; leg < 4; ++leg)
-    leg_joint_update(fr.leg[leg], tau_j[leg], acc, P.dt, s.jq[leg], s.jqd[leg]);
-  base_step(acc, r, P.dt, s.pb, s.q, s.vb, s.wb);
-}
-
-// One 50 Hz control step: `substeps` substeps with a held target; mass
-// factors rebuilt at i % mass_freeze == 0 from the start of the step.
-template <typename T, bool kBoxes = false>
-__device__ void control_step(const ModelConst<T>& M, const Params<T>& P, State<T>& s,
-                             const T target[4][3], Frozen<T>& fr, const T* boxes = nullptr,
-                             int n_boxes = 0) {
-  const int freeze = P.mass_freeze > 1 ? P.mass_freeze : 1;
-#pragma unroll 1
-  for (int i = 0; i < P.substeps; ++i)
-    substep<T, kBoxes>(M, P, s, target, fr, (i % freeze) == 0, boxes, n_boxes);
-}
-
-// ------------------------------------------------------ lane-group substep
+// ----------------------------------------------------------------- substep
 
 // One candidate's state as a lane of its group holds it.
 template <typename T>
@@ -942,6 +814,25 @@ struct LaneState {
   T pb[3], q[4], vb[3], wb[3];  // the base: the same on every lane of the group
   T jq[3], jqd[3];              // the lane's leg
 };
+
+// The 37-value start state (pb 3, q 4, vb 3, wb 3, jq 12, jqd 12) as a
+// lane that holds leg `leg` keeps it: the base and that leg's joint rows.
+template <typename T>
+__device__ __forceinline__ void load_lane_state(const T* state, int leg, LaneState<T>& s) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    s.pb[i] = state[i];
+    s.vb[i] = state[7 + i];
+    s.wb[i] = state[10 + i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s.q[i] = state[3 + i];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    s.jq[j] = state[13 + leg * 3 + j];
+    s.jqd[j] = state[25 + leg * 3 + j];
+  }
+}
 
 template <typename T>
 struct LaneFrozen {
@@ -1037,10 +928,12 @@ __device__ __forceinline__ void leg_contact(const Group<G>& g, const ModelConst<
   add_contact<2>(k.pw, fw, O, L, tau_b, tau_j);
 }
 
-// The substep of `substep` for lane g.rank of its group: the same
-// arithmetic, the leg loop spread over the lanes. The trunk spheres of a
-// lane: G = 4 splits the six 2, 2, 1, 1; G = 8 puts one on each of ranks
-// 0-5.
+// One 500 Hz substep for lane g.rank of its group. refactor: rebuild the
+// mass factors about the current base position first (substep
+// i % mass_freeze == 0 of a control step). kBoxes: contact also against the
+// n_boxes rows of `boxes` (feet, wheels and the trunk proxy); without it
+// the code is the plane-only substep. The trunk spheres of a lane: G = 4
+// splits the six 2, 2, 1, 1; G = 8 puts one on each of ranks 0-5.
 template <typename T, bool kBoxes, int G>
 __device__ __forceinline__ void substep_group(const ModelConst<T>& M, const Params<T>& P,
                                               const Group<G>& g, LaneState<T>& s,
@@ -1124,8 +1017,9 @@ __device__ __forceinline__ void substep_group(const ModelConst<T>& M, const Para
   base_step(acc, r, P.dt, s.pb, s.q, s.vb, s.wb);
 }
 
-// control_step for lane g.rank of its group; target: the lane's leg's three
-// joint targets.
+// One 50 Hz control step for lane g.rank of its group: `substeps` substeps
+// with a held target (the lane's leg's three joint targets); mass factors
+// rebuilt at i % mass_freeze == 0 from the start of the step.
 template <typename T, bool kBoxes, int G>
 __device__ __forceinline__ void control_step_group(const ModelConst<T>& M, const Params<T>& P,
                                                    const Group<G>& g, LaneState<T>& s,

@@ -1,7 +1,7 @@
 // Stage-cost terms shared by the task rollout kernels (K2 rollout_traversal.cu,
-// K4 rollout_chase.cu): posture, fall, clearance and the gait prior, in the
-// one-thread form (K2) and the lane-group form (K4: the sums over the 12
-// joints taken per leg, then over the legs in leg order).
+// K4 rollout_chase.cu): posture, fall, clearance and the gait prior, for a
+// lane of the group that rolls a candidate (the sums over the 12 joints
+// taken per leg, then over the legs in leg order).
 //
 // Replaces the shared helpers of lifelike_tpu/ops/traversal_pallas.py
 // (_posture_cost, _fall_mask, _clearance_cost and the gait-tracking block of
@@ -41,22 +41,8 @@ __device__ __forceinline__ T posture_from(const PostureParams<T>& W, const T* pb
   return posture;
 }
 
-// rollout_tasks.posture_cost_tl (one thread)
-template <typename T>
-__device__ __forceinline__ T posture_cost(const PostureParams<T>& W, const State<T>& s) {
-  T pose_err = T(0);
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const T e = s.jq[l][j] - W.stand[l * 3 + j];
-      pose_err += e * e;
-    }
-  return posture_from(W, s.pb, s.q, pose_err);
-}
-
-// posture_cost for lane g.rank of a group: each lane's leg, then the legs'
-// sum in leg order
+// rollout_tasks.posture_cost_tl for lane g.rank of a group: each lane's
+// leg, then the legs' sum in leg order
 template <typename T, int G>
 __device__ __forceinline__ T posture_cost(const PostureParams<T>& W, const Group<G>& g,
                                           const LaneState<T>& s) {
@@ -97,23 +83,7 @@ __device__ __forceinline__ T clearance_cost(const T* pb, const T* boxes, int n_b
 
 // Gait-prior tracking of one stage (without gait_weight): mean squared
 // joint error + gait_vel_weight x mean squared joint-velocity error against
-// the packed reference row r.
-template <typename T>
-__device__ __forceinline__ T gait_cost(const State<T>& s, const T* r, T gait_vel_weight) {
-  T e_q = T(0), e_qd = T(0);
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const T dq = s.jq[l][j] - r[kOffJP + l * 3 + j];
-      e_q += dq * dq;
-      const T dv = s.jqd[l][j] - r[kOffJV + l * 3 + j];
-      e_qd += dv * dv;
-    }
-  return e_q / T(12) + gait_vel_weight * (e_qd / T(12));
-}
-
-// gait_cost for lane g.rank of a group
+// the packed reference row r, for lane g.rank of a group.
 template <typename T, int G>
 __device__ __forceinline__ T gait_cost(const Group<G>& g, const LaneState<T>& s, const T* r,
                                        T gait_vel_weight) {
@@ -126,45 +96,6 @@ __device__ __forceinline__ T gait_cost(const Group<G>& g, const LaneState<T>& s,
     e_qd += dv * dv;
   }
   return legs_sum(g, e_q) / T(12) + gait_vel_weight * (legs_sum(g, e_qd) / T(12));
-}
-
-// The shared 37-value start state: pb 3, q 4, vb 3, wb 3, jq 12, jqd 12.
-template <typename T>
-__device__ __forceinline__ void load_state(const T* state, State<T>& s) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    s.pb[i] = state[i];
-    s.vb[i] = state[7 + i];
-    s.wb[i] = state[10 + i];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) s.q[i] = state[3 + i];
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      s.jq[l][j] = state[13 + l * 3 + j];
-      s.jqd[l][j] = state[25 + l * 3 + j];
-    }
-}
-
-// The same for a lane of a group that holds leg `leg`: the base and that
-// leg's joint rows.
-template <typename T>
-__device__ __forceinline__ void load_lane_state(const T* state, int leg, LaneState<T>& s) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    s.pb[i] = state[i];
-    s.vb[i] = state[7 + i];
-    s.wb[i] = state[10 + i];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) s.q[i] = state[3 + i];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    s.jq[j] = state[13 + leg * 3 + j];
-    s.jqd[j] = state[25 + leg * 3 + j];
-  }
 }
 
 }  // namespace lifelike

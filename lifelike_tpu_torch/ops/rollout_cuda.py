@@ -2,8 +2,8 @@
 
 `rollout_tracking_fused` scores every MPPI candidate of a PMC tracking
 solve: H control steps of the MAX quadruped (csrc/scalar_phys.cuh) from the
-solve's one start state plus the 5-term tracking cost, one CUDA thread per
-candidate (csrc/rollout_tracking.cu).
+solve's one start state plus the 5-term tracking cost, each candidate rolled
+by a group of GROUP lanes of one warp (csrc/rollout_tracking.cu).
 On a CUDA tensor it launches that kernel (or raises); on a CPU tensor it runs
 the kernel's plain PyTorch version, solver.rollout_tl.rollout_tracking.
 
@@ -36,6 +36,8 @@ _REF_WIDTH = 64
 
 _STATE_LEN = 37  # TLState leaves pb 3, q 4, vb 3, wb 3, jq 12, jqd 12
 _PARAM_LEN = 20
+BLOCK = 32  # threads per block: one warp
+GROUP = 8  # lanes per candidate (kGroup of csrc/rollout_tracking.cu)
 
 
 _LIB = None
@@ -58,12 +60,15 @@ def build() -> cuda_build.BuildInfo:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(i32)] * 4 + [i32]
         fn.restype = i32
-    for name in ("lifelike_rollout_block_size", "lifelike_rollout_param_len",
-                 "lifelike_rollout_model_len_f32", "lifelike_rollout_model_len_f64"):
+    for name in ("lifelike_rollout_block_size", "lifelike_rollout_group_size",
+                 "lifelike_rollout_param_len", "lifelike_rollout_model_len_f32",
+                 "lifelike_rollout_model_len_f64"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
     if lib.lifelike_rollout_param_len() != _PARAM_LEN:
         raise RuntimeError("kernel parameter layout differs from ops/rollout_cuda.py")
+    if (lib.lifelike_rollout_block_size(), lib.lifelike_rollout_group_size()) != (BLOCK, GROUP):
+        raise RuntimeError("kernel block / group size differs from ops/rollout_cuda.py")
     _LIB, _BUILD = lib, info
     return _BUILD
 
@@ -74,8 +79,9 @@ def ptxas_summary(text):
 
 
 def kernel_attributes(dtype=torch.float32, horizon=50):
-    """Registers, local (spill) bytes per thread, block size and resident
-    blocks per SM of the compiled kernel, from the CUDA runtime."""
+    """Registers, local (spill) bytes per thread, block size, lanes per
+    candidate (group), candidates per block and resident blocks per SM of the
+    compiled kernel, from the CUDA runtime."""
     build()
     fn = (_LIB.lifelike_rollout_attrs_f64 if dtype == torch.float64
           else _LIB.lifelike_rollout_attrs_f32)
@@ -85,7 +91,7 @@ def kernel_attributes(dtype=torch.float32, horizon=50):
         raise RuntimeError(f"cudaFuncGetAttributes/occupancy failed: error {err}")
     regs, local, max_threads, blocks = (v.value for v in vals)
     return {"registers": regs, "local_bytes": local, "max_threads": max_threads,
-            "block": _LIB.lifelike_rollout_block_size(), "blocks_per_sm": blocks}
+            "block": BLOCK, "group": GROUP, "per_block": BLOCK // GROUP, "blocks_per_sm": blocks}
 
 
 def pack_reference(ref: rollout_tl.RefTraj) -> torch.Tensor:

@@ -5,7 +5,8 @@ ops/traversal_pallas (K2, K3, K4).
     MPPI candidate of an EPMC traversal solve: H control steps of the MAX
     quadruped with box contact against a pruned K-box table
     (csrc/scalar_phys.cuh) from the solve's one start state, plus the
-    traversal stage cost, one CUDA thread per candidate. With
+    traversal stage cost: a group of lanes of one warp per candidate (two
+    per leg, splitting its foot and wheel contact). With
     gait_weight = 0 and a constant reference equal to the current joints
     it computes solver.rollout_tasks.rollout_traversal.
   * `rollout_plan_fused` (K3, csrc/rollout_plan.cu) rolls one fixed plan per
@@ -62,7 +63,7 @@ class _Lib(NamedTuple):
     launch_args: tuple  # ctypes argument types of the launch function
     param_len: int  # host double parameter vector of the launch
     symbol: str  # kernel function name in the ptxas report
-    group: int  # lanes per candidate (K3: per plan); checked against the library if > 1
+    group: int  # lanes per candidate (K3: per plan); checked against the library
     per_block: int  # candidates (K3: plans) per block of BLOCK threads
 
 
@@ -77,7 +78,7 @@ _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 BLOCK = 32  # threads per block of K2, K3 and K4: one warp
 _LIB_SPECS = {
     KERNEL: _Lib("traversal", (_PTR,) * 4 + (_I32,) + (_PTR,) * 3 + (_I64, _I64, _PTR, _I32, _PTR),
-                 43, "rollout_traversal_kernel", 1, 32),
+                 43, "rollout_traversal_kernel", 8, 4),
     PLAN_KERNEL: _Lib("plan", (_PTR,) * 3 + (_I32,) + (_PTR,) * 3 + (_I32, _PTR, _I32, _PTR),
                       16, "rollout_plan_kernel", 8, 1),
     CHASE_KERNEL: _Lib("chase", (_PTR,) * 4 + (_I32,) + (_PTR,) * 3 + (_I64, _I64, _PTR, _I32, _PTR),
@@ -101,17 +102,13 @@ def build(kernel: cuda_build.Kernel = KERNEL) -> cuda_build.BuildInfo:
         fn = getattr(lib, f"lifelike_{spec.name}_attrs_{dt}")
         fn.argtypes = [ctypes.POINTER(_I32)] * 4 + [_I32, _I32]
         fn.restype = _I32
-    for stem in ("block_size", "param_len"):
+    for stem in ("block_size", "group_size", "param_len"):
         getattr(lib, f"lifelike_{spec.name}_{stem}").argtypes = []
         getattr(lib, f"lifelike_{spec.name}_{stem}").restype = _I32
     if getattr(lib, f"lifelike_{spec.name}_param_len")() != spec.param_len:
         raise RuntimeError(f"{kernel.source}: parameter layout differs from ops/traversal_cuda.py")
-    group = spec.group
-    if spec.group > 1:
-        fn = getattr(lib, f"lifelike_{spec.name}_group_size")
-        fn.argtypes, fn.restype = [], _I32
-        group = fn()
-    if (getattr(lib, f"lifelike_{spec.name}_block_size")(), group) != (BLOCK, spec.group):
+    if (getattr(lib, f"lifelike_{spec.name}_block_size")(),
+            getattr(lib, f"lifelike_{spec.name}_group_size")()) != (BLOCK, spec.group):
         raise RuntimeError(f"{kernel.source}: block / group size differs from ops/traversal_cuda.py")
     _LOADED[kernel] = (lib, info)
     return info
@@ -268,9 +265,9 @@ def _pack_state(state: B.TLState, n_scen, dev, dtype):
 
 
 def _launch_candidates(kernel, c, state, controls, tab, rows, task, hp):
-    """Launch K2 (one thread per candidate) or K4 (four lanes per
-    candidate) over the candidates of `controls` from the one start state,
-    S = len(tab) scenario blocks. Returns the cost (Bs, L)."""
+    """Launch K2 or K4 (a lane group per candidate) over the candidates of
+    `controls` from the one start state, S = len(tab) scenario blocks.
+    Returns the cost (Bs, L)."""
     dev, dtype = controls.device, controls.dtype
     S = tab.shape[0]
     _check_launch(controls, S)

@@ -327,18 +327,20 @@ def _check_launch_geometry():
     """The wrappers' launch geometry (pure Python, no kernel): K4 rolls each
     candidate on four lanes, eight candidates per one-warp block, so 2048
     candidates make 256 blocks; K3 rolls each plan on eight lanes of a warp;
-    K2 keeps a thread per candidate. A scenario block must hold whole blocks
-    of candidates, or the launch is refused."""
+    K2 rolls each candidate on eight lanes, four candidates per one-warp
+    block, so the EPMC solve's 4096 candidates make 1024 blocks. A scenario
+    block must hold whole blocks of candidates, or the launch is refused."""
     tc = traversal_cuda
     assert tc.launch_geometry(tc.CHASE_KERNEL, 2048) == (4, 32, 8, 256)
     assert tc.launch_geometry(tc.CHASE_KERNEL, 2048, 4).blocks == 256
     assert tc.launch_geometry(tc.CHASE_KERNEL, 20).blocks == 3  # a ragged last block
     assert tc.launch_geometry(tc.PLAN_KERNEL, 16) == (8, 32, 1, 16)
-    assert tc.launch_geometry(tc.KERNEL, 4096, 4) == (1, 32, 32, 128)
+    assert tc.launch_geometry(tc.KERNEL, 4096, 4) == (8, 32, 4, 1024)
+    assert tc.launch_geometry(tc.KERNEL, 250).blocks == 63
     with pytest.raises(ValueError, match="multiple of 8"):
         tc.launch_geometry(tc.CHASE_KERNEL, 16, 4)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        tc.launch_geometry(tc.KERNEL, 64, 4)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tc.launch_geometry(tc.KERNEL, 24, 4)
     with pytest.raises(ValueError, match="scenarios"):
         tc.launch_geometry(tc.CHASE_KERNEL, 10, 4)
 

@@ -30,7 +30,7 @@ from lifelike_tpu_torch.physics import engine
 from lifelike_tpu_torch.physics.dynamics import RobotState
 from lifelike_tpu_torch.robot.model import build_max_model
 
-from tests.torch_port_util import contact_scene, stand_state
+from tests.torch_port_util import contact_scene, screened_gate, shifted_start, stand_state
 
 MODEL = build_max_model()
 
@@ -61,24 +61,6 @@ def _setup(dtype, device, horizon, substeps, mass_freeze, n_states=1, seed=0):
     return c, params, tl, boxes, ref, rng
 
 
-def _gate(got, want, shifted, tol):
-    """rtol = atol = tol over the values whose plain result stays within tol
-    under the start shift; returns the number gated."""
-    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
-    limit = tol + tol * want.abs()
-    gated = torch.ones_like(want, dtype=torch.bool)
-    if shifted is not None:
-        gated = (shifted - want).abs() <= limit
-    bad = ((got - want).abs() > limit) & gated
-    assert not bool(bad.any()), float((got - want).abs()[gated].max())
-    return int(gated.sum())
-
-
-def _shift(tl):
-    x = tl.base_pos.new_tensor([1e-10, 0.0, 0.0]).reshape(3, 1, 1)
-    return tl._replace(base_pos=tl.base_pos + x)
-
-
 def _check_plan(device, dtype, horizon, substeps, mass_freeze, n_scen, tol, screen):
     c, params, tl, boxes, ref, rng = _setup(dtype, device, horizon, substeps, mass_freeze, n_scen)
     plan = torch.as_tensor(0.05 * rng.standard_normal((n_scen, horizon, 4, 3)), dtype=dtype,
@@ -94,9 +76,9 @@ def _check_plan(device, dtype, horizon, substeps, mass_freeze, n_scen, tol, scre
     assert traversal_cuda.rollout_plan_fused.launches == before + 1
     assert tuple(got.shape) == (horizon, 3, n_scen, 1)
     want = traversal_cuda.rollout_plan_plain(c, params, tl, plan, tabs, refs)
-    shifted = (traversal_cuda.rollout_plan_plain(c, params, _shift(tl), plan, tabs, refs)
+    shifted = (traversal_cuda.rollout_plan_plain(c, params, shifted_start(tl), plan, tabs, refs)
                if screen else None)
-    return _gate(got, want, shifted, tol), got.numel()
+    return screened_gate(got, want, shifted, tol), got.numel()
 
 
 def _check_chase(device, dtype, horizon, substeps, mass_freeze, n_scen, tol, screen,
@@ -123,9 +105,9 @@ def _check_chase(device, dtype, horizon, substeps, mass_freeze, n_scen, tol, scr
     assert traversal_cuda.rollout_chase_fused.launches == before + 1
     assert tuple(got.shape) == (pop // 64, 64)
     want = traversal_cuda.rollout_chase_plain(c, params, tl, u, *args, gait_weight=gait_weight)
-    shifted = (traversal_cuda.rollout_chase_plain(c, params, _shift(tl), u, *args,
+    shifted = (traversal_cuda.rollout_chase_plain(c, params, shifted_start(tl), u, *args,
                                                   gait_weight=gait_weight) if screen else None)
-    return _gate(got, want, shifted, tol), got.numel()
+    return screened_gate(got, want, shifted, tol), got.numel()
 
 
 def check_chase_kernels(device):

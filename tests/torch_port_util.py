@@ -95,3 +95,25 @@ def contact_scene(model, state, capacity=12):
     active = np.arange(capacity) < len(rows)
     return dict(center=center, half=half, active=active,
                 target_pos=np.array([base[0] + 4.0, 0.3, 0.0]))
+
+
+def screened_gate(got, want, shifted, tol):
+    """Kernel `got` vs plain `want` at rtol = atol = tol over the values whose
+    plain result stays within tol when the start shifts by 1e-10 m
+    (`shifted`: the plain result from shifted_start; None gates every
+    value). Contact chaos amplifies such a shift, and rounding differences
+    alike. Returns the number of values gated."""
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
+    limit = tol + tol * want.abs()
+    gated = torch.ones_like(want, dtype=torch.bool)
+    if shifted is not None:
+        gated = (shifted - want).abs() <= limit
+    bad = ((got - want).abs() > limit) & gated
+    assert not bool(bad.any()), float((got - want).abs()[gated].max())
+    return int(gated.sum())
+
+
+def shifted_start(tl):
+    """A TLState start moved by 1e-10 m along x."""
+    x = tl.base_pos.new_tensor([1e-10, 0.0, 0.0]).reshape(3, 1, 1)
+    return tl._replace(base_pos=tl.base_pos + x)

@@ -21,7 +21,7 @@ independent), and a reduction over it (the sum of the boxes' forces) counts
 one level too. A strictly sequential rollout cannot run faster than depth x
 H x (the latency of one dependent operation, about 4 cycles on the H100's
 FP32 and FP64 pipes) per candidate: chip_smoke.py turns the depth into the
-chain floor of K3 and K4 with the card's own maximum SM clock. The PGS sweep (K5) is counted from
+chain floor of K1-K4 with the card's own maximum SM clock. The PGS sweep (K5) is counted from
 lifelike_tpu.physics.impulse._pgs, the row loop the Pallas sweep is pinned
 to, for one iteration of one batch element: every arithmetic primitive, and
 a dot_general of length K as K multiplies and K - 1 adds. The Riccati
@@ -234,11 +234,12 @@ def main():
         print(json.dumps({"config": f"K5 PGS sweep, {r} rows, per element per iteration",
                           "ops": n, "per_row": n / r}))
     both = lambda fn, *a: (fn(*a), fn(*a, measure=_depth))
-    rows = [
-        ("K1 plane, substeps 10, mass_freeze 10", both(physics_ops, 10, 10, 0), (0, 0)),
-        ("K2 8 boxes, substeps 10, mass_freeze 10", both(physics_ops, 10, 10, 8),
-         both(traversal_stage_ops, 8)),
-    ]
+    rows = []
+    for mf in (10, 1):  # the headline setting and the closed loops' default plant
+        rows.append((f"K1 plane, substeps 10, mass_freeze {mf}", both(physics_ops, 10, mf, 0),
+                     (0, 0)))
+        rows.append((f"K2 8 boxes, substeps 10, mass_freeze {mf}", both(physics_ops, 10, mf, 8),
+                     both(traversal_stage_ops, 8)))
     for sub, mf in ((10, 10), (20, 1)):
         phys = both(physics_ops, sub, mf, 4)
         rows.append((f"K3 4 boxes, substeps {sub}, mass_freeze {mf}", phys, (0, 0)))
