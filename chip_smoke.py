@@ -15,8 +15,10 @@ result line:
      rollout with box contact, K3 the SEPMC opponent plan rollout and K4 the
      SEPMC chase rollout (each candidate / plan on a group of lanes of one
      warp), K5 the hard-contact plant's PGS sweep (float32 and float64, 60
-     and 129 rows), K6 the iLQR Riccati backward sweep (float32 and float64,
-     its dynamic shared memory);
+     and 129 rows; each robot on a group of lanes of a one-warp block: the
+     lanes per robot, robots per block, dynamic shared memory and the SMs
+     bench_impulse's B 256 occupies), K6 the iLQR Riccati backward sweep
+     (float32 and float64, its dynamic shared memory);
   3. K1 vs its plain PyTorch version, float32, at the JAX kernel test's
      shape (H 3, substeps 2, mass_freeze 1), population 4096, rtol=atol=2e-4;
   4. K1 vs plain version, float64, rtol=atol=1e-6, at the headline solve
@@ -48,7 +50,11 @@ result line:
      mu at B 256 and B 1 (10 iterations); float64 at 1e-9, float32 at
      1e-5 (on the hurdle system at B 256, whose own rounding moves the
      plain sweep by more, at twice the plain version's distance from the
-     float64 sweep plus 1e-5);
+     float64 sweep plus 1e-5); then the random and the B 256 hurdle system
+     cut to batches that are not a multiple of K5's robots per block (B 5,
+     and B 257 with robot i the system's robot i mod B), to two leading
+     batch axes ((2, 3)) and with a non-contiguous J, each at its system's
+     gate;
   8b. the port's impulse.control_step through K5 against the golden traces
      (lifelike_tpu_torch/data/oracle_traces, H 50): float64 max |dq| < 1e-5
      on walk, run, stand and hurdle; float32 over 64 starts per trace 1e-6
@@ -56,8 +62,10 @@ result line:
      H 50 error under the JAX tests' ceilings (walk, run 1e-2, stand 2e-2,
      hurdle 6e-3);
   8c. K6 vs its plain version on random LQR systems shaped as the reference
-     test's (S 3 and S 8 scenarios, H 50, reg 1e-3 and 0): float32 at 2e-5
-     (x max(|k|, 1) for the feedforward gains), float64 at 1e-9;
+     test's (S 3 and S 8 scenarios, H 50, reg 1e-3 and 0; S 1, S 13 and H 1
+     at reg 1e-3): float32 at 2e-5 (x max(|k|, 1) for the feedforward
+     gains), float64 at 1e-9; and a stiff system (S 2, H 50: Cuu 3e-3 I
+     beside B'VB ~1e6) at 10d's gates;
   8. the PMC closed loop through bin/run_mpc (population 4096, H 50, 1 MPPI
      iteration, default plant) for STEPS control steps, with K1's launch
      count checked against solves x iterations;
@@ -93,31 +101,39 @@ result line:
      control step x H x 4 cycles at the card's maximum SM clock); K5 (device
      time from torch.profiler, and the wrapper call) at bench.py
      bench_impulse's shape (B 256 standing robots, 60 rows, 10 iterations)
-     and for one robot on the 129-row hurdle system, and the whole
+     and for one robot on the 129-row hurdle system, beside its chain floor
+     (the dependency depth of a sweep x iterations x 4 cycles at the card's
+     maximum SM clock), the kernels one wrapper call runs on the plant's
+     tensors (only K5: a copy kernel fails the run), and the whole
      hard-contact control step at bench_impulse's shape; K6 (device time
-     from torch.profiler, the wrapper call, the plain sweep, the bound) at
-     the hybrid's S 8 / H 50 in float32 and float64 and at S 1; where one
-     hybrid PMC solve's time goes (MPPI stage, seed rollout, linearize,
-     sweeps, line search);
+     from torch.profiler, the wrapper call, the plain sweep, the bound, the
+     chain floor: the depth of a step x H x 4 cycles) at the hybrid's S 8 /
+     H 50 in float32 and float64 and at S 1; where one hybrid PMC solve's
+     time goes (MPPI stage, seed rollout, linearize, sweeps, line search);
 then one JSON line listing the six kernels, the nvidia-smi line, and last
 the result line {"ok": true, "device": {...}}. Needs one card; builds the
 kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
 non-zero without a result when no card (or no lifelike_tpu_torch beside
 this file) is present.
 
-  python3 chip_smoke.py --timing [--root DIR] [--group Kn=G ...] [--loop TASK ...]
+  python3 chip_smoke.py --timing [--root DIR] [--only Kn ...] [--group Kn=G ...]
+                                [--loop TASK ...]
 
-runs only phase 11's timing of K1-K4 (K1, K2 and K4 at the headline and
-closed-loop settings, K3 at S = 1 and 16; plain versions, bounds, chain
-floors) of the checkout DIR (default: this one), importing DIR's
+runs only phase 11's kernel timing (K1, K2 and K4 at the headline and
+closed-loop settings, K3 at S = 1 and 16; K5 at bench_impulse's shape and
+for one robot on 129 rows, device time beside the wrapper call; K6 at S 8
+/ H 50 for float32 and float64 I/O and at S 1; plain versions, bounds,
+chain floors) of the checkout DIR (default: this one), importing DIR's
 chip_smoke.py and lifelike_tpu_torch, so an older commit unpacked with
 `git archive` into a directory that .gitignore lists is timed by its own
 code; two commits are compared by one such run per checkout in one command
-on one card, in turns (parent, change, change, parent). --group Kn=G (n 1
-to 4) builds that kernel with its lane group kGroup set to G, 4 or 8 (a
-copy of DIR's csrc/ with that constant rewritten, built under its own
-hash). --loop TASK (pmc, epmc or sepmc) adds that closed loop of phases
-8-10 and its solve latency. Ends with one JSON line of the times.
+on one card, in turns (parent, change, change, parent). --only Kn (n 1 to
+6, repeatable) times those kernels alone (default: all six). --group Kn=G
+builds that kernel with its lane group kGroup set to G (K1-K4: 4 or 8; K5:
+8, 16 or 32 lanes per robot) in a copy of DIR's csrc/ with that constant
+rewritten, built under its own hash. --loop TASK (pmc, epmc or sepmc) adds
+that closed loop of phases 8-10 and its solve latency. Ends with one JSON
+line of the times.
 """
 import importlib.util
 import json
@@ -148,6 +164,10 @@ OPS_PER_LANE_STEP_CHASE_PLANT = {"K3": 297160, "K4": 297160 + 235}
 # by tools/kernel_op_counts.py (the arithmetic of
 # lifelike_tpu.physics.impulse._pgs, a length-18 dot as 35 operations).
 OPS_PER_SWEEP = {60: 4728, 129: 10248}
+# ... and the dependency depth of that sweep (tools/kernel_op_counts.py: its
+# rows' updates in order, a dot one level): the chain floor of K5 is depth x
+# iterations x CHAIN_CYCLES cycles
+SWEEP_DEPTH = {60: 540, 129: 1161}
 IMPULSE_B, IMPULSE_SUBSTEPS = 256, 10  # bench.py bench_impulse's shape
 # K6: the MPPI->iLQR hybrid at bench.py bench_hybrid's width (population
 # pop // 4 = 1024, H 50, n_refine 7: S = 8 scenarios) with run_mpc's default
@@ -161,6 +181,9 @@ RICCATI_N, RICCATI_M, RICCATI_S = 37, 12, HYB_REFINE + 1
 # n 37, m 12: a length-K dot as K multiplies and K - 1 adds; the six input
 # blocks read once, the two gains written once)
 RICCATI_OPS_PER_STEP, RICCATI_BYTES_PER_STEP = 383995, 15324
+# ... and the dependency depth of one step (a dot one level, the 12
+# Gauss-Jordan rounds among it): K6's chain floor is depth x H x CHAIN_CYCLES
+RICCATI_DEPTH_PER_STEP = 75
 # Dependency depth of one control step, printed by tools/kernel_op_counts.py
 # (physics_depth: the longest chain of dependent arithmetic primitives of
 # the traced control_step, the box axis once), keyed by (kernel, substeps,
@@ -189,10 +212,12 @@ KERNELS = {
                     "inlined)",
                source="lifelike_tpu_torch/csrc/rollout_chase.cu",
                replaces="lifelike_tpu/ops/traversal_pallas.py:486"),
-    "K5": dict(name="pgs_sweep (K5, the hard-contact plant's PGS sweep)",
+    "K5": dict(name="pgs_sweep (K5, the hard-contact plant's PGS sweep, a lane group per robot, "
+                    "rows in shared memory)",
                source="lifelike_tpu_torch/csrc/pgs_sweep.cu",
                replaces="lifelike_tpu/ops/pgs_pallas.py:65"),
-    "K6": dict(name="riccati_sweep (K6, the iLQR Riccati backward sweep)",
+    "K6": dict(name="riccati_sweep (K6, the iLQR Riccati backward sweep, FP64 tensor-core tiles, "
+                    "a one-warp solve)",
                source="lifelike_tpu_torch/csrc/riccati_sweep.cu",
                replaces="lifelike_tpu/solver/riccati_pallas.py:92"),
 }
@@ -767,47 +792,81 @@ def pgs_systems(dtype, seed=0):
     return out
 
 
-def compare_pgs(dtype, tol):
-    """Phase 8a: K5 vs pgs_sweep_plain on every system of pgs_systems;
-    returns the largest |kernel - plain| over v and lam.
+def batch_variants(label, args, batch):
+    """A sweep system (arguments as pgs_sweep's) cut to batches that K5's
+    one-warp blocks do not divide (B 5; B 257, robot i of the new batch
+    being robot i mod B), to two leading batch axes ((2, 3)) and with a
+    non-contiguous J (the same values): (label, arguments, batch) each."""
+    import torch
 
-    Every system: |kernel - plain| <= tol, with one exception. On the
-    float32 hurdle system at B 256 (1024 box contacts, 10 sweeps of 129
-    rows) the plain version itself moves by far more than 1e-5 when its
-    rounding changes, so there the kernel is held to that rounding floor:
-    its distance from the float64 sweep of the same inputs may be at most
-    twice the plain version's, plus tol. The one-robot hurdle system, the
-    shape the hard-contact closed loop launches, keeps the plain gate; its
-    plain version's distance from float64 is printed beside it."""
+    def cut(f):
+        return [f(x) if torch.is_tensor(x) and x.dim() > 0 and x.shape[0] == batch else x
+                for x in args]
+
+    noncontig = list(args)
+    noncontig[2] = args[2].transpose(-1, -2).contiguous().transpose(-1, -2)
+    return [(f"{label}, cut to B 5", cut(lambda x: x[:5]), 5),
+            (f"{label}, cut to B 257",
+             cut(lambda x: x[torch.arange(257, device=x.device) % batch]), 257),
+            (f"{label}, cut to batch (2, 3)",
+             cut(lambda x: x[:6].reshape((2, 3) + tuple(x.shape[1:]))), 6),
+            (f"{label}, non-contiguous J", noncontig, batch)]
+
+
+def check_pgs_system(dtype, tol, label, args, idx, iters, batch):
+    """K5 vs pgs_sweep_plain on one system (see compare_pgs); returns the
+    largest |kernel - plain| over v and lam."""
     import torch
 
     from lifelike_tpu_torch.ops import pgs_cuda
 
-    worst = 0.0
+    got = pgs_cuda.pgs_sweep(*args, idx, iterations=iters)
+    want = pgs_cuda.pgs_sweep_plain(*args, idx, iterations=iters)
+    torch.cuda.synchronize()
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    finite = all(bool(torch.isfinite(x).all()) for x in got + want)
+    shapes = all(g.shape == w.shape for g, w in zip(got, want))
+    note, ok = "", max(errs) <= tol
+    if dtype == torch.float32 and "hurdle" in label:
+        exact = pgs_cuda.pgs_sweep_plain(
+            *(x.double() if torch.is_tensor(x) else x for x in args), idx, iterations=iters)
+        floor = max(float((w.double() - e).abs().max()) for w, e in zip(want, exact))
+        k_err = max(float((g.double() - e).abs().max()) for g, e in zip(got, exact))
+        note = f" | vs the float64 sweep: kernel {k_err:.3e}, plain {floor:.3e}"
+        if batch > 1:
+            ok = k_err <= 2.0 * floor + tol
+            note += f" (gate: kernel <= 2 x plain + {tol:g})"
+    say(f"check K5 {str(dtype).replace('torch.', '')} {label}, {iters} iterations: "
+        f"max|kernel-plain| v {errs[0]:.3e} lam {errs[1]:.3e} (tol {tol:g}){note} | "
+        f"max|v| {float(want[0].abs().max()):.4f} max|lam| {float(want[1].abs().max()):.4f}")
+    if not finite or not shapes:
+        raise SystemExit(f"K5 {label}: non-finite output or wrong shape")
+    if not ok:
+        raise SystemExit(f"K5 {label}: kernel disagrees with its plain version")
+    return max(errs)
+
+
+def compare_pgs(dtype, tol):
+    """Phase 8a: K5 vs pgs_sweep_plain on every system of pgs_systems, then
+    on the random and the B 256 hurdle system's batch_variants; returns the
+    largest |kernel - plain| over v and lam.
+
+    Every system: |kernel - plain| <= tol, with one exception. On the
+    float32 hurdle system at B 256 (1024 box contacts, 10 sweeps of 129
+    rows) the plain version itself moves by far more than 1e-5 when its
+    rounding changes, so there (and on its cuts of more than one robot) the
+    kernel is held to that rounding floor: its distance from the float64
+    sweep of the same inputs may be at most twice the plain version's, plus
+    tol. The one-robot hurdle system, the shape the hard-contact closed loop
+    launches, keeps the plain gate; its plain version's distance from
+    float64 is printed beside it."""
+    worst, cut = 0.0, []
     for label, args, idx, iters, batch in pgs_systems(dtype):
-        got = pgs_cuda.pgs_sweep(*args, idx, iterations=iters)
-        want = pgs_cuda.pgs_sweep_plain(*args, idx, iterations=iters)
-        torch.cuda.synchronize()
-        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-        finite = all(bool(torch.isfinite(x).all()) for x in got + want)
-        note, ok = "", max(errs) <= tol
-        if dtype == torch.float32 and "hurdle" in label:
-            exact = pgs_cuda.pgs_sweep_plain(
-                *(x.double() if torch.is_tensor(x) else x for x in args), idx, iterations=iters)
-            floor = max(float((w.double() - e).abs().max()) for w, e in zip(want, exact))
-            k_err = max(float((g.double() - e).abs().max()) for g, e in zip(got, exact))
-            note = f" | vs the float64 sweep: kernel {k_err:.3e}, plain {floor:.3e}"
-            if batch > 1:
-                ok = k_err <= 2.0 * floor + tol
-                note += f" (gate: kernel <= 2 x plain + {tol:g})"
-        say(f"check K5 {str(dtype).replace('torch.', '')} {label}, {iters} iterations: "
-            f"max|kernel-plain| v {errs[0]:.3e} lam {errs[1]:.3e} (tol {tol:g}){note} | "
-            f"max|v| {float(want[0].abs().max()):.4f} max|lam| {float(want[1].abs().max()):.4f}")
-        if not finite:
-            raise SystemExit(f"K5 {label}: non-finite output")
-        if not ok:
-            raise SystemExit(f"K5 {label}: kernel disagrees with its plain version")
-        worst = max(worst, *errs)
+        worst = max(worst, check_pgs_system(dtype, tol, label, args, idx, iters, batch))
+        if batch > 1 and "walking" not in label:
+            cut += [(v, idx, iters) for v in batch_variants(label, args, batch)]
+    for (label, args, batch), idx, iters in cut:
+        worst = max(worst, check_pgs_system(dtype, tol, label, args, idx, iters, batch))
     return worst
 
 
@@ -892,8 +951,32 @@ def check_traces():
 
 
 def device_ms(fn, kernel_name, reps=20):
-    """Device time per call of the kernels whose name holds `kernel_name`
+    """Device time per launch of the kernels whose name holds `kernel_name`
     (torch.profiler's CUDA activity), fn called `reps` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):  # the profiler now and then drops most of a run's events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel_name in e.key]
+        us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                 for e in events)
+        count = sum(e.count for e in events)
+        if count >= reps // 2:
+            break
+    if us <= 0.0 or count == 0:
+        raise SystemExit(f"torch.profiler recorded no device time for {kernel_name}")
+    return us / 1e3 / count
+
+
+def call_kernels(fn, reps=5):
+    """{name: count per call} of the device kernels and copies that calls of
+    fn run (torch.profiler's CUDA activity over `reps` calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -903,11 +986,8 @@ def device_ms(fn, kernel_name, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-             for e in prof.key_averages() if kernel_name in e.key)
-    if us <= 0.0:
-        raise SystemExit(f"torch.profiler recorded no device time for {kernel_name}")
-    return us / 1e3 / reps
+    return {e.key: e.count / reps for e in prof.key_averages()
+            if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) > 0.0}
 
 
 def time_pgs():
@@ -949,6 +1029,10 @@ def time_pgs():
         kernel_ms = device_ms(call, "pgs_sweep_kernel")
         plain_ms = cuda_ms(lambda: pgs_cuda.pgs_sweep_plain(*system, p.mu, idx, iterations=it),
                            reps=1, warmup=1)
+        ran = call_kernels(call)
+        if [k for k in ran if "pgs_sweep_kernel" not in k] or not ran:
+            raise SystemExit(f"K5 wrapper: a call on the plant's tensors ran {ran} per call")
+        floor_ms = SWEEP_DEPTH[r] * it * CHAIN_CYCLES / (sm_clock_mhz() * 1e3)
         ops = OPS_PER_SWEEP[r] * it * lanes
         # each input read once, each output written once: v, lam0, J, MinvJT,
         # d, b, lo, hi, mu; mu_idx (int32); v and lam out
@@ -958,7 +1042,10 @@ def time_pgs():
             f"torch.profiler) | wrapper call {wrapper_ms:.4f} ms (CUDA events) | plain "
             f"{plain_ms:.1f} ms | bound {bound_ms:.6f} ms ({ops:.4e} ops / 67 TFLOP/s = "
             f"{ops_ms:.6f} ms; {nbytes} B / 3.35 TB/s = {bytes_ms:.6f} ms, bound by {by}) | "
-            f"kernel at {100 * bound_ms / kernel_ms:.4f}% of bound | library: none")
+            f"kernel at {100 * bound_ms / kernel_ms:.4f}% of bound | chain floor "
+            f"{SWEEP_DEPTH[r]} levels x {it} iterations x {CHAIN_CYCLES} cycles = {floor_ms:.4f} ms, "
+            f"kernel {kernel_ms / floor_ms:.2f}x | library: none")
+        say(f"timing K5 wrapper call, {label}: device work per call {ran} (no copy kernel)")
         rows[lanes] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                            library_ms=None)
     step_ms = cuda_ms(lambda: impulse.control_step(model, p, s, lam, stand), reps=5, warmup=1)
@@ -969,10 +1056,13 @@ def time_pgs():
     return rows[n]
 
 
-def riccati_system(S, H, dtype, seed):
+def riccati_system(S, H, dtype, seed, stiff=False):
     """An LQR system shaped as the reference test's _rand_lqr
     (tests/test_riccati_pallas.py, tests/test_torch_riccati.py): A near
-    identity, SPD cost Hessians; numpy from `seed`, on the card."""
+    identity, SPD cost Hessians; numpy from `seed`, on the card. stiff: B's
+    columns scaled from 1e-3 to 10**2.8 and Cuu = 3e-3 I, so that B'VB
+    reaches ~1e6 beside the damping, as in the hybrid loop's linearizations
+    through contact."""
     import numpy as np
     import torch
 
@@ -986,6 +1076,9 @@ def riccati_system(S, H, dtype, seed):
     Cxx = W @ np.swapaxes(W, -1, -2) + 0.1 * np.eye(n)
     V = 0.1 * rng.standard_normal((S, H, m, m))
     Cuu = V @ np.swapaxes(V, -1, -2) + 0.1 * np.eye(m)
+    if stiff:
+        Bm = Bm * np.logspace(-3.0, 2.8, m)
+        Cuu = np.broadcast_to(3e-3 * np.eye(m), Cuu.shape).copy()
     return [torch.as_tensor(x, dtype=dtype, device="cuda") for x in (A, Bm, cx, cu, Cxx, Cuu)]
 
 
@@ -1024,24 +1117,29 @@ def compare_riccati(label, args, reg, tol):
 
 def compare_riccati_random():
     """Phase 8c: K6 vs its plain version on random systems at the loop's
-    horizon, S 3 and S 8: float32 2e-5, float64 1e-9. Returns the float32
-    max |kernel - plain|."""
+    horizon, S 3 and S 8 (reg 1e-3 and 0), S 1, S 13 and at H 1: float32
+    2e-5, float64 1e-9; then a stiff system at phase 10d's gates. Returns
+    the float32 max |kernel - plain| of the random systems."""
     import torch
 
     worst = 0.0
-    for S, seed in ((3, 61), (RICCATI_S, 62)):
-        for reg in (1e-3, 0.0):
-            worst = max(worst, compare_riccati("random system", riccati_system(
-                S, HORIZON, torch.float32, seed), reg, 2e-5))
-            compare_riccati("random system", riccati_system(S, HORIZON, torch.float64, seed),
-                            reg, 1e-9)
+    cases = [(3, HORIZON, 61, reg) for reg in (1e-3, 0.0)]
+    cases += [(RICCATI_S, HORIZON, 62, reg) for reg in (1e-3, 0.0)]
+    cases += [(1, HORIZON, 63, 1e-3), (13, HORIZON, 64, 1e-3), (3, 1, 65, 1e-3)]
+    for S, H, seed, reg in cases:
+        worst = max(worst, compare_riccati("random system", riccati_system(
+            S, H, torch.float32, seed), reg, 2e-5))
+        compare_riccati("random system", riccati_system(S, H, torch.float64, seed), reg, 1e-9)
+    compare_riccati_loop(riccati_system(2, HORIZON, torch.float32, 66, stiff=True),
+                         "stiff random system", "Cuu 3e-3 I, B columns 1e-3 .. 6e2 x 0.1")
     return worst
 
 
-def compare_riccati_loop(args):
+def compare_riccati_loop(args, label="loop linearization", source="PMC hybrid, first solve"):
     """Phase 10d: K6 vs its plain version on the hybrid PMC loop's own first
     linearization (the sweep's float32 inputs, LM damping folded into Cuu,
-    captured from the loop's first solve). Float32: the random systems' gate
+    captured from the loop's first solve); phase 8c's stiff system alike.
+    Float32: the random systems' gate
     where it holds; where the plain sweep's own float32-to-float64 distance
     exceeds it (stiff contact makes Quu poorly conditioned, and Gauss-Jordan
     without pivoting and LU with pivoting round apart), the kernel's
@@ -1059,7 +1157,7 @@ def compare_riccati_loop(args):
     p64 = riccati_cuda.riccati_sweep_plain(*a64, reg=0.0)
     torch.cuda.synchronize()
     if not all(bool(torch.isfinite(x).all()) for x in k32 + p32 + k64 + p64):
-        raise SystemExit("K6 loop linearization: non-finite gains")
+        raise SystemExit(f"K6 {label}: non-finite gains")
     up = lambda g: tuple(x.double() for x in g)
     rk, rK, dk, dK = gain_errors(k32, p32)
     floor = gain_errors(up(p32), p64)
@@ -1067,11 +1165,11 @@ def compare_riccati_loop(args):
     r64 = gain_errors(k64, p64)
     quu = args[5][:, :, range(RICCATI_M), range(RICCATI_M)]
     S, H = args[0].shape[:2]
-    say(f"check K6 loop linearization S {S} H {H} (PMC hybrid, first solve; Cuu diagonal "
+    say(f"check K6 {label} S {S} H {H} ({source}; Cuu diagonal "
         f"{float(quu.min()):.3e} .. {float(quu.max()):.3e}, max|A| "
         f"{float(args[0].abs().max()):.3e}) | max|k|, max|K| {float(p64[0].abs().max()):.4e}, "
         f"{float(p64[1].abs().max()):.4e}")
-    say(f"check K6 float32 loop linearization: |kernel-plain| k {dk:.3e} ({rk:.3e} of max(|k|, "
+    say(f"check K6 float32 {label}: |kernel-plain| k {dk:.3e} ({rk:.3e} of max(|k|, "
         f"1)) K {dK:.3e} ({rK:.3e}) | vs the float64 sweep (relative to scale): plain k "
         f"{floor[0]:.3e} K {floor[1]:.3e}, kernel k {kern[0]:.3e} K {kern[1]:.3e}")
     if rk <= tol and dK <= tol:
@@ -1080,12 +1178,12 @@ def compare_riccati_loop(args):
             and kern[1] <= 2 * floor[1] + tol:
         gate = f"the plain sweep's rounding floor (kernel <= 2 x plain + {tol:g} vs float64)"
     else:
-        raise SystemExit("K6 loop linearization float32: kernel disagrees with its plain version")
-    say(f"check K6 float32 loop linearization: passes {gate}")
-    say(f"check K6 float64 loop linearization: |kernel-plain| k {r64[2]:.3e} ({r64[0]:.3e} of "
+        raise SystemExit(f"K6 {label} float32: kernel disagrees with its plain version")
+    say(f"check K6 float32 {label}: passes {gate}")
+    say(f"check K6 float64 {label}: |kernel-plain| k {r64[2]:.3e} ({r64[0]:.3e} of "
         f"max(|k|, 1)) K {r64[3]:.3e} ({r64[1]:.3e} of max(|K|, 1)) (tol 1e-9 of scale)")
     if r64[0] > 1e-9 or r64[1] > 1e-9:
-        raise SystemExit("K6 loop linearization float64: kernel disagrees with its plain version")
+        raise SystemExit(f"K6 {label} float64: kernel disagrees with its plain version")
 
 
 class SweepCapture:
@@ -1138,6 +1236,10 @@ def time_riccati():
         ops_ms, bytes_ms = 1e3 * ops / peak, 1e3 * nbytes / PEAK_HBM_BYTES
         bound_ms, by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
         name = str(dtype).replace("torch.", "")
+        floor_ms = RICCATI_DEPTH_PER_STEP * HORIZON * CHAIN_CYCLES / (sm_clock_mhz() * 1e3)
+        say(f"chain floor K6 {name} S {S}: {RICCATI_DEPTH_PER_STEP} levels x H {HORIZON} x "
+            f"{CHAIN_CYCLES} cycles = {floor_ms:.4f} ms | kernel {kernel_ms:.4f} ms, "
+            f"{kernel_ms / floor_ms:.2f}x the floor")
         say(f"timing K6 {name} S {S} H {HORIZON}: kernel {kernel_ms:.4f} ms (device time, "
             f"torch.profiler) | wrapper call {wrapper_ms:.4f} ms (CUDA events) | plain "
             f"{plain_ms:.2f} ms | bound {bound_ms:.6f} ms ({ops:.4e} ops / {peak / 1e12:g} "
@@ -1438,14 +1540,16 @@ def main():
             for dt in (torch.float32, torch.float64):
                 for rows in pgs_cuda.ROW_COUNTS:
                     a = pgs_cuda.kernel_attributes(dt, rows)
+                    blocks = -(-IMPULSE_B // a["per_block"])
                     say(f"runtime K5 {str(dt).replace('torch.', '')} rows {rows}: {a} | "
-                        f"elements/SM at {IMPULSE_B}: {IMPULSE_B / 132:.2f} of "
-                        f"{a['blocks_per_sm'] * a['block']} resident")
+                        f"{a['group']} lanes per robot, {a['per_block']} robots per one-warp "
+                        f"block: B {IMPULSE_B} in {blocks} blocks on {min(blocks, 132)} of 132 "
+                        f"SMs, {a['blocks_per_sm']} blocks resident per SM")
             continue
         if key == "K6":
             riccati_cuda.build()
             for sym, v in sorted(riccati_cuda.ptxas_summary(info.ptxas).items()):
-                say(f"ptxas K6 {'f32' if 'IfdE' in sym else 'f64'} I/O: {v}")
+                say(f"ptxas K6 {'f32' if 'IfE' in sym else 'f64'} I/O: {v}")
             for dt in (torch.float32, torch.float64):
                 a = riccati_cuda.kernel_attributes(dt)
                 say(f"runtime K6 {str(dt).replace('torch.', '')}: {a} | blocks (scenarios) at "
@@ -1582,6 +1686,8 @@ def timing_mode(argv):
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py --timing")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--only", action="append", default=[],
+                    choices=[f"K{i}" for i in range(1, 7)])
     ap.add_argument("--group", action="append", default=[], metavar="Kn=G")
     ap.add_argument("--loop", action="append", default=[], choices=("pmc", "epmc", "sepmc"))
     args = ap.parse_args(argv)
@@ -1597,8 +1703,9 @@ def timing_mode(argv):
         print("chip_smoke: torch.cuda.is_available() is False; needs one NVIDIA GPU",
               file=sys.stderr)
         return 2
-    from lifelike_tpu_torch.ops import cuda_build, rollout_cuda
+    from lifelike_tpu_torch.ops import cuda_build, pgs_cuda, rollout_cuda
     from lifelike_tpu_torch.ops import traversal_cuda as tc
+    from lifelike_tpu_torch.solver import riccati_cuda
 
     if not os.path.dirname(os.path.abspath(tc.__file__)).startswith(root):
         raise SystemExit(f"lifelike_tpu_torch imported from {tc.__file__}, not from {root}")
@@ -1606,8 +1713,13 @@ def timing_mode(argv):
     say(f"timing: {root} | {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | max SM clock "
         f"{sm_clock_mhz():g} MHz")
     kernels = {"K1": rollout_cuda.KERNEL, "K2": tc.KERNEL, "K3": tc.PLAN_KERNEL,
-               "K4": tc.CHASE_KERNEL}
+               "K4": tc.CHASE_KERNEL, "K5": pgs_cuda.KERNEL, "K6": riccati_cuda.KERNEL}
+    keys = sorted(set(args.only)) or sorted(kernels)
     groups = {k: int(g) for k, g in (a.split("=") for a in args.group)}
+    lane_groups = {"K1": (4, 8), "K2": (4, 8), "K3": (4, 8), "K4": (4, 8), "K5": (8, 16, 32)}
+    for key, g in groups.items():
+        if g not in lane_groups.get(key, ()):
+            raise SystemExit(f"--group {key}={g}: no such lane group")
     if groups:
         variant = os.path.join(cuda_build.BUILD_DIR, "csrc_" + "_".join(
             f"{k}g{g}" for k, g in sorted(groups.items())))
@@ -1624,22 +1736,35 @@ def timing_mode(argv):
                 f.write(text)
             if key == "K1":
                 rollout_cuda.GROUP = g
-            else:
+            elif key != "K5":  # K5's launch takes its geometry from the library
                 spec = tc._LIB_SPECS[kernels[key]]
                 tc._LIB_SPECS[kernels[key]] = spec._replace(
                     group=g, per_block=spec.per_block if key == "K3" else tc.BLOCK // g)
         cuda_build.CSRC_DIR = variant
-    for key, info in zip(kernels, cuda_build.build_all(list(kernels.values()))):
+    for key, info in zip(keys, cuda_build.build_all([kernels[k] for k in keys])):
         if key == "K1":
             rollout_cuda.build()
             ptxas = rollout_cuda.ptxas_summary(info.ptxas)
+        elif key == "K5":
+            pgs_cuda.build()
+            ptxas = pgs_cuda.ptxas_summary(info.ptxas)
+        elif key == "K6":
+            riccati_cuda.build()
+            ptxas = riccati_cuda.ptxas_summary(info.ptxas)
         else:
             tc.build(kernels[key])
             ptxas = tc.ptxas_summary(info.ptxas, kernels[key])
         for sym, v in sorted(ptxas.items()):
-            say(f"ptxas {key} {'f64' if 'IdEE' in sym else 'f32'}: {v}")
-    rows, exact = time_rollouts(smoke)
-    rows.update(smoke.time_chase(model_len()))
+            say(f"ptxas {key} {sym}: {v}")
+    rows, exact = {}, {}
+    if {"K1", "K2"} & set(keys):
+        rows, exact = time_rollouts(smoke)
+    if {"K3", "K4"} & set(keys):
+        rows.update(smoke.time_chase(model_len()))
+    if "K5" in keys:
+        rows["K5"] = smoke.time_pgs()
+    if "K6" in keys:
+        rows["K6"] = smoke.time_riccati()
     out = {"root": root, "groups": groups, "smi": smi,
            "timing": {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms")}
                       for k, v in rows.items()},

@@ -3,12 +3,20 @@ ops/pgs_pallas (K5).
 
 `pgs_sweep` runs the hard-contact plant's impulse solve (physics/impulse.py):
 `iterations` in-order sweeps over the n_rows contact and joint rows of every
-batch element, one CUDA thread per element (csrc/pgs_sweep.cu). On a CUDA
-tensor it launches that kernel (or raises); on a CPU tensor it runs the
-kernel's plain PyTorch version, `pgs_sweep_plain`. Unlike the TPU kernel it
-takes any batch shape, the 60-row flat and the 129-row box-scene systems,
-the friction map `mu_idx` as an argument and a per-element `mu`, so nothing
-on the card falls back to the plain version.
+batch element (robot). On a CUDA tensor it launches the kernel
+csrc/pgs_sweep.cu (or raises); on a CPU tensor it runs the kernel's plain
+PyTorch version, `pgs_sweep_plain`. Unlike the TPU kernel it takes any batch
+shape, the 60-row flat and the 129-row box-scene systems, the friction map
+`mu_idx` as an argument and a per-element `mu`, so nothing on the card falls
+back to the plain version.
+
+The sweep is a chain of dependent row updates per robot, so the kernel is
+bound by latency: it runs each robot on a group of `group()` lanes of a
+one-warp block (a butterfly of shuffles for each row's dot), with the
+robot's rows staged in shared memory once per call. It reads the tensors in
+the layout the plant builds them (the robot's rows together, the batch
+first), so the wrapper only flattens the batch: on the plant's contiguous
+tensors it copies nothing, and a scalar `mu` goes to the kernel by value.
 
 The kernel is compiled at first use from csrc/pgs_sweep.cu by ops.cuda_build
 (plain nvcc for sm_90a, a shared library with a C ABI loaded with ctypes,
@@ -39,14 +47,15 @@ def build() -> cuda_build.BuildInfo:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("lifelike_pgs_sweep_f32", "lifelike_pgs_sweep_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 12 + [i32, i32, i32, ptr]
+        fn.argtypes = [ptr] * 12 + [i32, i32, i32, i32, ctypes.c_double, ptr]
         fn.restype = i32
     for name in ("lifelike_pgs_attrs_f32", "lifelike_pgs_attrs_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(i32)] * 4 + [i32]
+        fn.argtypes = [ctypes.POINTER(i32)] * 5 + [i32]
         fn.restype = i32
-    lib.lifelike_pgs_block_size.argtypes = []
-    lib.lifelike_pgs_block_size.restype = i32
+    for name in ("lifelike_pgs_block_size", "lifelike_pgs_group", "lifelike_pgs_robots_per_block"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
     _LIB, _BUILD = lib, info
     return _BUILD
 
@@ -57,17 +66,20 @@ def ptxas_summary(text):
 
 
 def kernel_attributes(dtype=torch.float32, n_rows=60):
-    """Registers, local bytes per thread, block size and resident blocks per
-    SM of the compiled instance, from the CUDA runtime."""
+    """Registers, local bytes per thread, block size, lanes per robot, robots
+    per block, dynamic shared memory and resident blocks per SM of the
+    compiled instance, from the CUDA runtime."""
     build()
     fn = _LIB.lifelike_pgs_attrs_f64 if dtype == torch.float64 else _LIB.lifelike_pgs_attrs_f32
-    vals = [ctypes.c_int(0) for _ in range(4)]
+    vals = [ctypes.c_int(0) for _ in range(5)]
     err = fn(*(ctypes.byref(v) for v in vals), int(n_rows))
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes/occupancy failed: error {err}")
-    regs, local, max_threads, blocks = (v.value for v in vals)
+    regs, local, max_threads, blocks, smem = (v.value for v in vals)
     return {"registers": regs, "local_bytes": local, "max_threads": max_threads,
-            "block": _LIB.lifelike_pgs_block_size(), "blocks_per_sm": blocks}
+            "block": _LIB.lifelike_pgs_block_size(), "group": _LIB.lifelike_pgs_group(),
+            "per_block": _LIB.lifelike_pgs_robots_per_block(), "shared_bytes": smem,
+            "blocks_per_sm": blocks}
 
 
 def pgs_sweep_plain(v, lam0, J, MinvJT, d, b, lo, hi, mu, mu_idx, iterations=10):
@@ -126,24 +138,33 @@ def _launch(v, lam0, J, MinvJT, d, b, lo, hi, mu, mu_idx, iterations):
     if not torch.is_tensor(mu_idx):
         raise ValueError("mu_idx: expected an int32 tensor (physics.impulse.friction_map)")
     _check("mu_idx", mu_idx, (n_rows,), dev, torch.int32)
-    mu_n = torch.broadcast_to(torch.as_tensor(mu, dtype=dtype, device=dev), batch)
+    # mu: by value when it is a number (or on the CPU), else read on the card,
+    # one value (stride 0) or one per robot (stride 1)
+    mu_ptr, mu_stride, mu_val = None, 0, 0.0
+    if not torch.is_tensor(mu) or (mu.numel() == 1 and not mu.is_cuda):
+        mu_val = float(mu)
+    elif mu.numel() == 1:
+        mu_ptr = mu.to(device=dev, dtype=dtype)
+    else:
+        mu_ptr = torch.broadcast_to(mu.to(device=dev, dtype=dtype), batch).contiguous()
+        mu_stride = 1
 
-    def lanes(x):  # (*batch, ...) -> (..., n): the batch axis last
-        return x.reshape((n,) + tuple(x.shape[len(batch):])).movedim(0, -1).contiguous()
-
-    args = [lanes(x) for x in (v, lam0, J, MinvJT, d, b, lo, hi)] + [mu_n.reshape(n).contiguous()]
-    v_out, lam_out = torch.empty_like(args[0]), torch.empty_like(args[1])
+    # a contiguous (*batch, ...) tensor is laid out as (n, ...): the plant's
+    # tensors go to the kernel as they are
+    args = [x.contiguous() for x in (v, lam0, J, MinvJT, d, b, lo, hi)]
+    v_out = torch.empty(batch + (NV,), dtype=dtype, device=dev)
+    lam_out = torch.empty(batch + (n_rows,), dtype=dtype, device=dev)
     build()
     fn = _LIB.lifelike_pgs_sweep_f64 if dtype == torch.float64 else _LIB.lifelike_pgs_sweep_f32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(x.data_ptr() for x in args), mu_idx.contiguous().data_ptr(), v_out.data_ptr(),
-                 lam_out.data_ptr(), n, n_rows, iterations, stream)
+        err = fn(*(x.data_ptr() for x in args), None if mu_ptr is None else mu_ptr.data_ptr(),
+                 mu_idx.contiguous().data_ptr(), v_out.data_ptr(), lam_out.data_ptr(), n, n_rows,
+                 iterations, mu_stride, mu_val, stream)
     if err != 0:
         raise RuntimeError(f"pgs_sweep kernel launch failed: error {err}")
     pgs_sweep.launches += 1
-    return (v_out.movedim(-1, 0).reshape(batch + (NV,)),
-            lam_out.movedim(-1, 0).reshape(batch + (n_rows,)))
+    return v_out, lam_out
 
 
 def pgs_sweep(v, lam0, J, MinvJT, d, b, lo, hi, mu, mu_idx, iterations=10):

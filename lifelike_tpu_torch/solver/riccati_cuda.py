@@ -4,12 +4,18 @@ solver/riccati_pallas (K6).
 The iLQR backward pass factorizes the block-banded KKT system of the
 horizon LQ subproblem (horizon H, state n = 37, control m = 12 blocks) by
 backward recursion. `riccati_sweep` runs it for S scenarios: on a CUDA
-tensor it launches the hand-written kernel csrc/riccati_sweep.cu (one
-thread block per scenario, the value function and the step's blocks in
-shared memory, the 12 x 12 inverse by Gauss-Jordan elimination), or
+tensor it launches the hand-written kernel csrc/riccati_sweep.cu, or
 raises; on a CPU tensor it runs the plain PyTorch version,
 `riccati_sweep_plain` (a reverse loop with torch.linalg.solve, the port of
 riccati_sweep_ref).
+
+The sweep is H dependent steps of small products per scenario, so the
+kernel is bound by latency and by one SM's FP64 rate: one thread block per
+scenario keeps the value function and the step's blocks in shared memory,
+computes the products as 16 x 8 tiles on the FP64 tensor cores, solves for
+the gains on one warp (Gauss-Jordan with diagonal pivots, the pivot column
+broadcast by shuffles) while the other warps compute Qxx, and fetches the
+next step's inputs while the current step runs.
 
 The kernel is compiled at first use by ops.cuda_build (plain nvcc for
 sm_90a, a shared library with a C ABI loaded with ctypes, under

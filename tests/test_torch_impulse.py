@@ -12,7 +12,8 @@ tools/bullet_oracle.py (no JAX) the port is held at the JAX tests' own
 levels: 1e-7 over 10 walking steps, 1e-9 for the joint-limit push-back,
 1e-6 over 15 steps through box contact. The kernel (K5) is held to its
 plain version on a card only (f32 1e-5, the Pallas kernel's tolerance, on
-the reference tests' systems; f64 1e-9).
+the reference tests' systems; f64 1e-9), also at batches its one-warp
+blocks do not divide, two leading batch axes and a non-contiguous J.
 """
 import os
 import sys
@@ -325,12 +326,34 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _batch_cuts(args):
+    """Sweep arguments (v, lam0, J, MinvJT, d, b, lo, hi, mu) of a B-robot
+    system cut to batches that K5's one-warp blocks do not divide (B 5; B
+    257, robot i being robot i mod B), to two leading axes ((2, 3)), and
+    with a non-contiguous J of the same values."""
+    n = args[0].shape[0]
+
+    def cut(f):
+        return [f(x) if torch.is_tensor(x) and x.dim() > 0 and x.shape[0] == n else x
+                for x in args]
+
+    noncontig = list(args)
+    noncontig[2] = args[2].transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not noncontig[2].is_contiguous()
+    return [cut(lambda x: x[:5]),
+            cut(lambda x: x[torch.arange(257, device=x.device) % n]),
+            cut(lambda x: x[:6].reshape((2, 3) + tuple(x.shape[1:]))),
+            noncontig]
+
+
 @pytest.mark.cuda
 def test_pgs_kernel_matches_plain(cuda_device):
     """K5 vs pgs_sweep_plain on the card at chip_smoke.py phase 8a's shapes:
-    the two random systems, a walking substep's system (B 128, 3
-    iterations) and the 129-row hurdle system (the hurdle trace's start,
-    box rows active) with a per-element mu at B 256 and for one robot;
+    the two random systems (60 rows with a scalar mu, 129 rows with a
+    per-element one), each also cut to B 5, B 257, a (2, 3) batch and with
+    a non-contiguous J; a walking substep's system (B 128, 3 iterations) and
+    the 129-row hurdle system (the hurdle trace's start, box rows active)
+    with a per-element mu at B 256 and for one robot;
     float64 at 1e-9, float32 at 1e-5 except on the hurdle system at B 256,
     whose plain sweep itself moves by far more than that when its rounding
     changes: there the kernel's distance from the float64 sweep of the same
@@ -343,8 +366,11 @@ def test_pgs_kernel_matches_plain(cuda_device):
         def dev(x):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=cuda_device)
 
-        cases = [([dev(x) for x in a[:9]], torch.as_tensor(a[9], device=cuda_device), a[10],
-                  False) for a in systems]
+        cases = []
+        for a in systems:
+            args = [dev(x) for x in a[:9]]
+            idx = torch.as_tensor(a[9], device=cuda_device)
+            cases += [(c, idx, a[10], False) for c in [args] + _batch_cuts(args)]
         walk = RobotState(**{k: dev(v) for k, v in st.items()})
         *sysw, idx = impulse.sweep_system(MODEL, impulse.ImpulseParams(iterations=3), walk,
                                           impulse.init_lam((128,), dtype, device=cuda_device),
@@ -367,6 +393,7 @@ def test_pgs_kernel_matches_plain(cuda_device):
             want = pgs_cuda.pgs_sweep_plain(*args, idx, iterations=iters)
             torch.cuda.synchronize()
             assert pgs_cuda.pgs_sweep.launches == before + 1
+            assert got[0].shape == args[0].shape and got[1].shape == args[1].shape
             if floor_gate:
                 exact = pgs_cuda.pgs_sweep_plain(*(x.double() for x in args), idx,
                                                  iterations=iters)

@@ -8,7 +8,8 @@ steps, n 37, m 12. The plain sweep is held to JAX's riccati_sweep_ref at
 (x max(|k|, 1) for the feedforward gains); it must solve an exact LQR
 problem optimally; the wrapper on CPU tensors is the plain sweep. The
 kernel (K6) is held to the plain sweep on a card only (float32 2e-5,
-float64 1e-9), by the `cuda`-marked test, which skips here.
+float64 1e-9; also at S 1, S 13, H 1 and on a stiff system), by the
+`cuda`-marked test, which skips here.
 """
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,15 @@ def rand_lqr(rng, S=3, H=5, n=N, m=M):
     V = 0.1 * rng.standard_normal((S, H, m, m))
     Cuu = V @ np.swapaxes(V, -1, -2) + 0.1 * np.eye(m)
     return A, Bm, cx, cu, Cxx, Cuu
+
+
+def stiff_lqr(rng, S, H):
+    """rand_lqr with B's columns scaled from 1e-3 to 10**2.8 and Cuu = 3e-3 I:
+    B'VB reaches ~1e6 beside the damping, as in the hybrid loop's
+    linearizations through contact."""
+    A, Bm, cx, cu, Cxx, Cuu = rand_lqr(rng, S=S, H=H)
+    Cuu = np.broadcast_to(3e-3 * np.eye(M), Cuu.shape).copy()
+    return A, Bm * np.logspace(-3.0, 2.8, M), cx, cu, Cxx, Cuu
 
 
 def _tensors(prob, dtype, device=CPU):
@@ -130,12 +140,13 @@ def cuda_device():
 @pytest.mark.cuda
 def test_riccati_kernel_matches_plain(cuda_device):
     """K6 vs riccati_sweep_plain on the card, at chip_smoke.py's random
-    systems (S 3 and S 8, H 50): float32 at 2e-5 (x max(|k|, 1) for k),
-    float64 at 1e-9; one launch per call; wrong shapes and mixed dtypes are
-    refused."""
+    systems (S 3 and S 8, H 50) and at S 1, S 13 and H 1: float32 at 2e-5
+    (x max(|k|, 1) for k), float64 at 1e-9; float64 at 1e-9 (k of max(|k|,
+    1)) on a stiff system (Cuu 3e-3 I beside B'VB ~1e6); one launch per
+    call; wrong shapes and mixed dtypes are refused."""
     rng = np.random.default_rng(6)
-    for S in (3, 8):
-        prob = rand_lqr(rng, S=S, H=50)
+    for S, H in ((3, 50), (8, 50), (1, 50), (13, 50), (3, 1)):
+        prob = rand_lqr(rng, S=S, H=H)
         for dtype, tol in ((torch.float32, 2e-5), (torch.float64, 1e-9)):
             args = _tensors(prob, dtype, cuda_device)
             before = riccati_cuda.riccati_sweep.launches
@@ -148,6 +159,11 @@ def test_riccati_kernel_matches_plain(cuda_device):
                     assert_close(g, w, rtol=0, atol=tol)
             else:
                 assert_gains_close(got, want, tol)
+    args = _tensors(stiff_lqr(rng, S=2, H=50), torch.float64, cuda_device)
+    got = riccati_cuda.riccati_sweep(*args, reg=0.0)
+    want = riccati_cuda.riccati_sweep_plain(*args, reg=0.0)
+    assert float(want[0].abs().max()) > 100.0  # the stiff directions' gains
+    assert_gains_close(got, want, 1e-9)
     args = _tensors(rand_lqr(rng, S=2, H=3), torch.float32, cuda_device)
     with pytest.raises(ValueError, match="Bm"):
         riccati_cuda.riccati_sweep(args[0], args[1][..., :11], *args[2:])

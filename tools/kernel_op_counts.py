@@ -29,7 +29,14 @@ sweep (K6) is counted the same way from the Pallas kernel's own step
 (lifelike_tpu.solver.riccati_pallas._backward_step with its Gauss-Jordan
 inverse), per scenario per horizon step at n = 37, m = 12, beside the bytes
 one step must move (its six input blocks read once, its two gains written
-once, float32).
+once, float32). Beside K5's and K6's counts stands their dependency depth
+by the same rule as K1-K4's, with each dot_general (a dot or a matrix
+product) one level too: K5's for one sweep of one element (its rows in
+order, each row's update a chain through v and lam) and per row (the
+sweep's depth over its rows), K6's for one backward step (the 12
+Gauss-Jordan rounds of the inverse among it). chip_smoke.py turns them into
+the chain floor of K5 (the sweep's depth x iterations) and of K6 (the
+step's depth x H).
 """
 import json
 import os
@@ -49,6 +56,7 @@ ARITH = {
 
 
 REDUCE = {"reduce_sum", "reduce_max", "reduce_min", "reduce_prod", "argmax", "argmin"}
+DOT = {"dot_general"}  # one level in K5's and K6's depths
 
 
 def _count(fn, *args):
@@ -60,10 +68,10 @@ def _count(fn, *args):
     return n
 
 
-def _depth_of(jaxpr, in_depths):
-    """Longest chain of dependent ARITH / REDUCE primitives from the inputs
-    (at in_depths) to each output of `jaxpr`, entering call bodies (jit,
-    custom_jvp_call)."""
+def _depth_of(jaxpr, in_depths, levels=ARITH | REDUCE):
+    """Longest chain of dependent primitives of `levels` (ARITH / REDUCE)
+    from the inputs (at in_depths) to each output of `jaxpr`, entering call
+    bodies (jit, custom_jvp_call, a scan's body once)."""
     depth = dict(zip(jaxpr.invars, in_depths))
 
     def of(v):  # a literal (it has a value) starts no chain
@@ -73,19 +81,19 @@ def _depth_of(jaxpr, in_depths):
         ins = [of(v) for v in eqn.invars]
         sub = eqn.params.get("jaxpr", eqn.params.get("call_jaxpr"))
         if sub is not None:
-            outs = _depth_of(getattr(sub, "jaxpr", sub), ins)
+            outs = _depth_of(getattr(sub, "jaxpr", sub), ins, levels)
         else:
-            step = 1 if eqn.primitive.name in ARITH | REDUCE else 0
+            step = 1 if eqn.primitive.name in levels else 0
             outs = [max(ins, default=0) + step] * len(eqn.outvars)
         for ov, d in zip(eqn.outvars, outs):
             depth[ov] = d
     return [of(v) for v in jaxpr.outvars]
 
 
-def _depth(fn, *args):
+def _depth(fn, *args, levels=ARITH | REDUCE):
     """Dependency depth of fn's outputs (the longest over them), inputs at 0."""
     closed = jax.make_jaxpr(fn)(*args)
-    return max(_depth_of(closed.jaxpr, [0] * len(closed.jaxpr.invars)), default=0)
+    return max(_depth_of(closed.jaxpr, [0] * len(closed.jaxpr.invars), levels), default=0)
 
 
 def _state():
@@ -193,8 +201,9 @@ def _count_nested(jaxpr, mult=1):
 
 
 def pgs_ops(with_boxes):
-    """Operations of one PGS sweep (iterations 1) of one element: the flat
-    60-row or the box-scene 129-row system."""
+    """Operations and dependency depth (a dot one level) of one PGS sweep
+    (iterations 1) of one element: the flat 60-row or the box-scene 129-row
+    system."""
     from lifelike_tpu.physics import impulse as JI
 
     idx = JI._MU_IDX_BOX if with_boxes else JI._MU_IDX
@@ -206,12 +215,14 @@ def pgs_ops(with_boxes):
 
     z = lambda *shape: jnp.zeros(shape, jnp.float32)
     args = (z(nv), z(r), z(r, nv), z(r, nv), z(r), z(r), z(r), z(r))
-    return r, _count_nested(jax.make_jaxpr(sweep)(*args).jaxpr)
+    return (r, _count_nested(jax.make_jaxpr(sweep)(*args).jaxpr),
+            _depth(sweep, *args, levels=ARITH | REDUCE | DOT))
 
 
 def riccati_ops(n=37, m=12):
-    """(operations, float32 bytes) of one Riccati backward step of one
-    scenario: the Pallas kernel's _backward_step traced at (n, m)."""
+    """(operations, float32 bytes, dependency depth with a dot one level) of
+    one Riccati backward step of one scenario: the Pallas kernel's
+    _backward_step traced at (n, m)."""
     from lifelike_tpu.solver import riccati_pallas as RP
 
     def step(A, Bm, cx, cu, Cxx, Cuu, Vx, Vxx):
@@ -222,17 +233,18 @@ def riccati_ops(n=37, m=12):
     ops = _count_nested(jax.make_jaxpr(step)(*args).jaxpr)
     # A, B, cx, cu, Cxx, Cuu in; k, K out
     nbytes = 4 * (n * n + n * m + n + m + n * n + m * m + m + m * n)
-    return ops, nbytes
+    return ops, nbytes, _depth(step, *args, levels=ARITH | REDUCE | DOT)
 
 
 def main():
-    ops, nbytes = riccati_ops()
+    ops, nbytes, depth = riccati_ops()
     print(json.dumps({"config": "K6 Riccati backward step, n 37, m 12, per scenario per step",
-                      "ops": ops, "bytes_f32": nbytes}))
+                      "ops": ops, "bytes_f32": nbytes, "depth": depth}))
     for boxes in (False, True):
-        r, n = pgs_ops(boxes)
+        r, n, depth = pgs_ops(boxes)
         print(json.dumps({"config": f"K5 PGS sweep, {r} rows, per element per iteration",
-                          "ops": n, "per_row": n / r}))
+                          "ops": n, "per_row": n / r, "depth": depth,
+                          "depth_per_row": depth / r}))
     both = lambda fn, *a: (fn(*a), fn(*a, measure=_depth))
     rows = []
     for mf in (10, 1):  # the headline setting and the closed loops' default plant
