@@ -43,7 +43,8 @@ result line:
      float64 at H 50, 1e-6, screened, at substeps 10 / mass_freeze 10 (gait
      prior, chaser) and at the closed loop's substeps 20 / mass_freeze 1
      (constant reference, gait_weight 0, escapee); four scenario blocks
-     (S = 4) with their own opponent trajectories, flags and roles;
+     (S = 4) with their own opponent trajectories, flags and roles, from
+     one shared start state and from one start state per block;
   8a. K5 vs its plain version on the card: the reference Pallas test's
      random system (B 128, 60 rows, 4 iterations), its walking substep
      (B 128, 3 iterations) and the 129-row hurdle system with a per-element
@@ -92,6 +93,25 @@ result line:
      where it holds, else at twice the plain sweep's own float32-to-float64
      distance plus 2e-5 (both printed); float64 at 1e-9 of each block's
      scale;
+ 10e. the SEPMC scenario sweep (parallel/scenario_sweep.py) at bench.py
+     bench_sweep's shape: S 16 arenas with random cubes, H 50, substeps 10,
+     mass_freeze 10, sigma 0.15, one iteration, one best-response round,
+     float32. Gates: (a) at population 256 the tiled sweep (K3 / K4 over all
+     16 scenario blocks) equals its oracle sweep_scenarios (one scenario per
+     launch) under the same normals at 2e-4, launches 2 / 2 against 32 /
+     32; (b) at S 4, population 64, H 5 the sweep on the kernels matches the
+     sweep on the plain versions (CPU tensors) at the reference's sweep
+     tolerances (cost 5e-3, plans rtol 5e-2 / atol 5e-3); (c) finite costs
+     and plans. Then at populations 256 and 1024 per robot per scenario,
+     SWEEP_ROUNDS chained rounds (warm-started from the previous round's
+     plans, as bench_sweep chains them) after 2 warm-up rounds: ms per round
+     (CUDA events, p50 and max) under bench.py's row names
+     sepmc_sweep_latency_s16_pop{256,1024}_H50, K3 / K4 launches (2 / 2 per
+     round, every other kernel 0) and one profiled round's device-busy
+     share (torch.profiler);
+ 10f. the C++ clip parser (lifelike_tpu_torch/_native) built with g++ on
+     this machine; load_clips reads a synthetic clip through it, frames
+     equal to the json module's;
  11. timings at the headline solve shapes (float32, mass_freeze 10; the
      chase kernels at substeps 10 on the 4-wall arena as bench.py's
      bench_sepmc): each kernel, its plain version and its bound on this
@@ -132,8 +152,10 @@ on one card, in turns (parent, change, change, parent). --only Kn (n 1 to
 builds that kernel with its lane group kGroup set to G (K1-K4: 4 or 8; K5:
 8, 16 or 32 lanes per robot) in a copy of DIR's csrc/ with that constant
 rewritten, built under its own hash. --loop TASK (pmc, epmc or sepmc) adds
-that closed loop of phases 8-10 and its solve latency. Ends with one JSON
-line of the times.
+that closed loop of phases 8-10 and its solve latency; --loop sweep adds
+phase 10e's timed rows (both populations; a checkout without
+parallel/scenario_sweep.py has none). Ends with one JSON line of the
+times.
 """
 import importlib.util
 import json
@@ -150,6 +172,8 @@ CONTACT_K = 8  # boxes per EPMC solve (solver/mpc_tasks.py CONTACT_K)
 CHASE_POP = 2048  # candidates per robot (bench.py bench_sepmc: pop // 2)
 CHASE_SUBSTEPS = 20  # the chase plant (envs/chase_tag.py ChaseTagConfig)
 SWEEP_S = 16  # scenarios of bench.py's bench_sweep
+SWEEP_POPS = (256, 1024)  # bench_sweep's populations per robot per scenario (bench.py:606-623)
+SWEEP_ROUNDS = 10  # chained sweep rounds timed per population, after 2 warm-up rounds
 # Scalar operations per candidate (K3: per plan) per control step, printed
 # by tools/kernel_op_counts.py (the arithmetic primitives of one
 # lifelike_tpu.ops.scalar_phys.control_step traced at (1, 1) tiles, with
@@ -687,11 +711,13 @@ def compare_chase(label, dtype, horizon, substeps, mass_freeze, tol, seed, chase
 
 def compare_chase_scenarios(tol):
     """Four scenario blocks of CHASE_POP/4 candidates, each with its own box
-    table, reference rows, opponent trajectory, flag and role, against the
-    plain version."""
+    table, reference rows, opponent trajectory, flag and role, from one
+    shared start state and from one start state per block (a scenario
+    sweep's call), against the plain version."""
     import torch
 
     from lifelike_tpu_torch.ops import traversal_cuda
+    from lifelike_tpu_torch.physics import batched as B
 
     c, params, tl, u, table, rows, opp, flag = chase_kernel_inputs(
         torch.float64, 3, 2, 1, CHASE_POP, 21, gait=True)
@@ -702,11 +728,15 @@ def compare_chase_scenarios(tol):
     opps = torch.stack([opp.reshape(3, 3) + 0.1 * k for k in range(4)])  # (S, H, 3)
     flags = flag[None] + shift[:, None]
     roles = torch.tensor([True, False, True, False], device=u.device)
-    args = (c, params, tl, u, tables, rows, opps, flags, roles)
-    got = traversal_cuda.rollout_chase_fused(*args, gait_weight=0.8)
-    want = traversal_cuda.rollout_chase_plain(*args, gait_weight=0.8)
-    return report_diff(f"check K4 f64 S=4: pop {CHASE_POP} H 3 substeps 2, 4 scenario blocks of "
-                       f"{CHASE_POP // 4}", got, want, tol)
+    err = 0.0
+    per_block = B.map_state(lambda x: torch.cat([x + 0.01 * k for k in range(4)], dim=-2), tl)
+    for state, label in ((tl, "one start state"), (per_block, "a start state per block")):
+        args = (c, params, state, u, tables, rows, opps, flags, roles)
+        got = traversal_cuda.rollout_chase_fused(*args, gait_weight=0.8)
+        want = traversal_cuda.rollout_chase_plain(*args, gait_weight=0.8)
+        err = max(err, report_diff(f"check K4 f64 S=4: pop {CHASE_POP} H 3 substeps 2, 4 scenario "
+                                   f"blocks of {CHASE_POP // 4}, {label}", got, want, tol))
+    return err
 
 
 def pgs_random_system(dtype, device="cuda"):
@@ -982,12 +1012,16 @@ def call_kernels(fn, reps=5):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count / reps for e in prof.key_averages()
-            if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) > 0.0}
+    for attempt in range(3):  # the profiler now and then drops a run's events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ran = {e.key: e.count / reps for e in prof.key_averages()
+               if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) > 0.0}
+        if ran:
+            break
+    return ran
 
 
 def time_pgs():
@@ -1368,6 +1402,182 @@ def closed_loop(task, launches_of, log_prefix, hard_contact=False, hybrid=None):
     return out, launches
 
 
+def sweep_inputs(pop, n_scen=SWEEP_S, horizon=HORIZON, device="cuda", seed=11):
+    """(constants, plant, MPPI config, scenarios) of bench.py's bench_sweep:
+    n_scen arenas with random cubes, float32, kd 1, max_tau 16, substeps 10,
+    mass_freeze 10, sigma 0.15, one iteration, `pop` per robot per
+    scenario."""
+    import torch
+
+    from lifelike_tpu_torch.parallel import scenario_sweep
+    from lifelike_tpu_torch.physics import batched as B
+    from lifelike_tpu_torch.physics import engine
+    from lifelike_tpu_torch.robot.model import build_max_model
+    from lifelike_tpu_torch.scene import arena_gen
+    from lifelike_tpu_torch.solver.mppi import MPPIConfig
+
+    c = B.tl_constants(build_max_model(), dtype=torch.float32, device=torch.device(device))
+    params = engine.PhysicsParams(kd=1.0, max_tau=16.0, substeps=SUBSTEPS, mass_freeze=SUBSTEPS)
+    cfg = MPPIConfig(horizon=horizon, population=pop, iterations=1, sigma=0.15)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    scen = scenario_sweep.generate_scenarios(gen, n_scen, arena_gen.ArenaConfig(rand_cube=True),
+                                             torch.float32, device=device)
+    return c, params, cfg, scen, gen
+
+
+def time_sweep(pop, launches_of=(), rounds=SWEEP_ROUNDS):
+    """bench_sweep's row at `pop`: `rounds` chained sweep rounds (1 best-
+    response round, warm-started from the previous round's plans, as
+    bench_sweep chains them) after 2 warm-up rounds, each timed with CUDA
+    events; every kernel count of launches_of set to 0 before the timed
+    rounds and read after. Returns {name, p50_ms, max_ms, launches, busy}:
+    busy is the device-busy share of one round (torch.profiler's device
+    time over the round's unprofiled time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lifelike_tpu_torch.parallel import scenario_sweep
+
+    c, params, cfg, scen, gen = sweep_inputs(pop)
+
+    def round_(u):
+        return scenario_sweep.sweep_scenarios_tiled(c, params, cfg, gen, scen, u_warm=u)
+
+    u = None
+    for _ in range(2):
+        u, cost = round_(u)
+    torch.cuda.synchronize()
+    for k in launches_of:
+        k.launches = 0
+    times = []
+    for _ in range(rounds):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        u, cost = round_(u)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    launches = [k.launches for k in launches_of]
+    if not bool(torch.isfinite(cost).all()) or not bool(torch.isfinite(u).all()):
+        raise SystemExit(f"sweep pop {pop}: non-finite costs or plans")
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        u, cost = round_(u)
+        e1.record()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    prof_ms = e0.elapsed_time(e1)
+    kernels = {}
+    for key, symbol in (("K3", "rollout_plan_kernel"), ("K4", "rollout_chase_kernel")):
+        hits = [e for e in dev if symbol in e.key]
+        n = sum(e.count for e in hits)
+        kernels[key] = (n, sum(e.self_device_time_total for e in hits) / 1e3 / max(n, 1))
+    other_ms = dev_ms - sum(n * ms for n, ms in kernels.values())
+    p50 = statistics.median(times)
+    name = f"sepmc_sweep_latency_s{SWEEP_S}_pop{pop}_H{cfg.horizon}"
+    say(f"sweep {name}: {rounds} chained rounds after 2 warm-up (CUDA events) p50 {p50:.3f} ms "
+        f"max {max(times):.3f} ms ({', '.join(f'{t:.3f}' for t in times)}) | kernel launches "
+        f"{launches} in {rounds} rounds | one profiled round: device time (torch.profiler) "
+        f"{dev_ms:.3f} ms of {prof_ms:.3f} ms (CUDA events), busy share {dev_ms / prof_ms:.4f}: "
+        + ", ".join(f"{k} {n} x {ms:.3f} ms" for k, (n, ms) in kernels.items())
+        + f", other kernels {other_ms:.3f} ms | best cost mean {float(cost.mean()):.4f} min "
+        f"{float(cost.min()):.4f}")
+    return dict(name=name, p50_ms=p50, max_ms=max(times), launches=launches,
+                busy=dev_ms / prof_ms)
+
+
+def check_sweep():
+    """Phase 10e's gates: (a) the tiled sweep at S SWEEP_S x 256 equals its
+    oracle sweep_scenarios (one scenario per K3 / K4 launch) under the same
+    normals at K4's 2e-4; (b) at a cut depth (S 4, population 64, H 5) the
+    sweep on the kernels matches the sweep on the plain versions (CPU
+    tensors) at the reference's kernel-vs-XLA sweep tolerances (cost
+    rtol = atol = 5e-3, plans rtol 5e-2 / atol 5e-3,
+    tests/test_scenario_sweep.py:150-153); (c) finite costs throughout."""
+    import torch
+
+    from lifelike_tpu_torch.ops import traversal_cuda as tc
+    from lifelike_tpu_torch.parallel import scenario_sweep
+
+    c, params, cfg, scen, gen = sweep_inputs(SWEEP_POPS[0])
+    eps = scenario_sweep.draw_noise(gen, cfg, SWEEP_S, 1, torch.float32, "cuda")
+    tc.rollout_plan_fused.launches = tc.rollout_chase_fused.launches = 0
+    u, cost = scenario_sweep.sweep_scenarios_tiled(c, params, cfg, None, scen, eps=eps)
+    u_o, cost_o = scenario_sweep.sweep_scenarios(c, params, cfg, None, scen, eps=eps)
+    torch.cuda.synchronize()
+    say(f"check sweep oracle: K3 / K4 launches {tc.rollout_plan_fused.launches} / "
+        f"{tc.rollout_chase_fused.launches} (tiled 2 / 2, oracle {2 * SWEEP_S} / {2 * SWEEP_S})")
+    if (tc.rollout_plan_fused.launches, tc.rollout_chase_fused.launches) != (2 + 2 * SWEEP_S,) * 2:
+        raise SystemExit("sweep: launches of the tiled sweep or its oracle are not as expected")
+    err = max(report_diff(f"check sweep (a) tiled vs oracle S {SWEEP_S} pop {cfg.population} H "
+                          f"{cfg.horizon} f32 best cost", cost, cost_o, 2e-4),
+              report_diff("check sweep (a) tiled vs oracle plans", u, u_o, 2e-4))
+
+    S, pop, H = 4, 64, 5
+    c, params, cfg, scen, gen = sweep_inputs(pop, n_scen=S, horizon=H)
+    eps = scenario_sweep.draw_noise(gen, cfg, S, 1, torch.float32, "cuda")
+    u, cost = scenario_sweep.sweep_scenarios_tiled(c, params, cfg, None, scen, eps=eps)
+    cpu = torch.device("cpu")
+    scen_cpu = type(scen)(*(type(x)(*(y.to(cpu) for y in x)) if isinstance(x, tuple)
+                            else x.to(cpu) for x in scen))
+    c_cpu = type(c)(*(x.to(cpu) if torch.is_tensor(x) else x for x in c))
+    u_p, cost_p = scenario_sweep.sweep_scenarios_tiled(
+        c_cpu, params, cfg, None, scen_cpu, eps=[[e.to(cpu) for e in r] for r in eps],
+        device="cpu")
+    for label, got, want, rtol, atol in (("best cost", cost, cost_p, 5e-3, 5e-3),
+                                         ("plans", u, u_p, 5e-2, 5e-3)):
+        got = got.cpu()
+        if not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"sweep (b) {label}: non-finite")
+        d = (got - want).abs()
+        bad = int((d > atol + rtol * want.abs()).sum())
+        say(f"check sweep (b) kernels vs plain versions S {S} pop {pop} H {H} f32 {label}: "
+            f"max|diff| {float(d.max()):.3e} (rtol {rtol:g} atol {atol:g}, {bad} outside)")
+        if bad:
+            raise SystemExit(f"sweep (b) {label}: the kernels' sweep disagrees with the plain one")
+    return err
+
+
+def check_clip_parser():
+    """Phase 10f: the C++ clip parser (lifelike_tpu_torch/_native) built with
+    g++ on this machine; load_clips reads a synthetic clip file through it,
+    frames equal to the json module's."""
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from lifelike_tpu_torch import _native
+    from lifelike_tpu_torch.motion import motion_lib
+
+    frames = motion_lib.make_synthetic_clip(600)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "synthetic_ret.txt")
+        with open(path, "w") as f:
+            json.dump({"FrameDuration": 1.0 / 120.0, "LegOrder": ["FR", "FL", "HR", "HL"],
+                       "Frames": frames.tolist()}, f)
+        t0 = time.perf_counter()
+        lib = _native.load_library()
+        t_build = time.perf_counter() - t0
+        clips = motion_lib.load_clips(path, device="cuda")
+        with open(path) as f:
+            want = np.asarray(json.load(f)["Frames"], np.float32)
+    if lib is None or motion_lib.load_clips.parsed_by != ["native"]:
+        raise SystemExit(f"clip parser: the native path did not parse the clip "
+                         f"({motion_lib.load_clips.parsed_by}, library {lib})")
+    got = clips.frames[0].cpu().numpy()
+    if not np.array_equal(got, want):
+        raise SystemExit("clip parser: frames differ from the json module's")
+    say(f"clip parser: {_native.library_path()} built and loaded in {t_build:.2f} s; "
+        f"load_clips parsed_by {motion_lib.load_clips.parsed_by}, {got.shape[0]} frames equal "
+        f"to the json module's")
+
+
 def bound(ops, nbytes):
     """(bound ms, what bounds it, ops ms, bytes ms) on this card's peaks."""
     ops_ms, bytes_ms = 1e3 * ops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_HBM_BYTES
@@ -1658,6 +1868,18 @@ def main():
     # 10d. K6 vs its plain version on the PMC hybrid loop's own linearization
     compare_riccati_loop(cap.args)
 
+    # 10e. the scenario sweep (bench_sweep's rows) on K3 / K4: its gates, then
+    # each population's chained rounds with every kernel count set to 0 first
+    check_sweep()
+    for pop in SWEEP_POPS:
+        row = time_sweep(pop, fns)
+        want = [0, 0, 2 * SWEEP_ROUNDS, 2 * SWEEP_ROUNDS, 0, 0]
+        if row["launches"] != want:
+            raise SystemExit(f"kernel launches of the sweep at pop {pop} (K1-K6): "
+                             f"{row['launches']}, expected {want} (2 K3 + 2 K4 per round)")
+    # 10f. the C++ clip parser
+    check_clip_parser()
+
     # 11. timings at the headline solve shapes
     timing, _ = time_rollouts(sys.modules[__name__])
     timing.update(time_chase(model_len()))
@@ -1689,7 +1911,8 @@ def timing_mode(argv):
     ap.add_argument("--only", action="append", default=[],
                     choices=[f"K{i}" for i in range(1, 7)])
     ap.add_argument("--group", action="append", default=[], metavar="Kn=G")
-    ap.add_argument("--loop", action="append", default=[], choices=("pmc", "epmc", "sepmc"))
+    ap.add_argument("--loop", action="append", default=[],
+                    choices=("pmc", "epmc", "sepmc", "sweep"))
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -1772,6 +1995,11 @@ def timing_mode(argv):
     fns = {"pmc": (rollout_cuda.rollout_tracking_fused,), "epmc": (tc.rollout_traversal_fused,),
            "sepmc": (tc.rollout_plan_fused, tc.rollout_chase_fused)}
     for task in args.loop:
+        if task == "sweep":
+            for pop in smoke.SWEEP_POPS:
+                row = smoke.time_sweep(pop, fns["sepmc"])
+                out[row["name"]] = {k: row[k] for k in ("p50_ms", "max_ms", "launches", "busy")}
+            continue
         run, launches = smoke.closed_loop(task, fns[task], f"closed loop {task}")
         t_ms = [1e3 * t for t in run["t_solve"][1:]]
         out[task] = {"solve_p50_ms": statistics.median(t_ms), "solve_max_ms": max(t_ms),

@@ -33,6 +33,8 @@ the seeds' costs.
 
 --clip takes a reference-format JSON clip file (or directory); the default
 "synthetic" uses motion_lib.make_synthetic_clip, which needs no data.
+--dump=PATH writes the PMC / EPMC closed loop's robot states, rewards and
+solve times to a .npz (utils.trajectory; tools/plot_traj.py renders it).
 """
 import argparse
 import sys
@@ -50,6 +52,7 @@ from lifelike_tpu_torch.physics.dynamics import RobotState
 from lifelike_tpu_torch.robot.model import build_max_model
 from lifelike_tpu_torch.scene import playground_gen
 from lifelike_tpu_torch.solver import hybrid, ilqr, mpc_tasks, mppi, mppi_tl
+from lifelike_tpu_torch.utils.trajectory import TrajectoryDump
 
 
 def arg_parser(description=__doc__.split("\n")[0]):
@@ -74,6 +77,8 @@ def arg_parser(description=__doc__.split("\n")[0]):
                    help="top raw candidates refined (--hybrid)")
     p.add_argument("--seed", type=int, default=0, help="generator seed")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    p.add_argument("--dump", default="",
+                   help="write the closed-loop trajectory to this .npz (pmc, epmc)")
     return p
 
 
@@ -118,6 +123,14 @@ def _refined(diags, diag):
         diags["seed_costs"].append([float(diag[f"seed_cost_{i}"]) for i in (0, 1)])
 
 
+def _save(dump, log):
+    """Write the trajectory dump (if any); returns its path or None."""
+    path = dump.save() if dump else None
+    if path:
+        log("trajectory written to %s" % path)
+    return path
+
+
 def setup_pmc(args):
     """(device, model, clips, env config, controller, generator, first env
     state, zero warm start) of the PMC closed loop, float32."""
@@ -160,6 +173,7 @@ def run_pmc(args, log=print):
     """Closed loop; returns a dict of per-step rewards, episode ends and
     solve times (seconds; CUDA-event times on the card)."""
     dev, model, clips, cfg, ctrl, gen, env, u = setup_pmc(args)
+    dump = TrajectoryDump(args.dump) if args.dump else None
     rewards, ep_rewards, ep_lens, t_solve = [], [], [], []
     step_rewards, episode_ends = [], []
     diags = {"refined_cost": [], "seed_costs": []}
@@ -169,6 +183,8 @@ def run_pmc(args, log=print):
         _refined(diags, diag)
         env, _, r, done, info = primitive.step(model, clips, cfg, env,
                                                tgt - env.robot.joint_pos)
+        if dump:
+            dump.add(env.robot, reward=r, solve_ms=1e3 * dt)
         rewards.append(float(r))
         step_rewards.append(float(r))
         if bool(done):
@@ -187,7 +203,7 @@ def run_pmc(args, log=print):
     log(_report("PMC", ep_rewards, ep_lens, t_solve))
     return {"step_rewards": step_rewards, "episode_ends": episode_ends,
             "ep_rewards": ep_rewards, "ep_lens": ep_lens, "t_solve": t_solve,
-            "device": str(dev), **diags}
+            "device": str(dev), "dump": _save(dump, log), **diags}
 
 
 def setup_epmc(args, env_cfg=None):
@@ -225,6 +241,7 @@ def run_epmc(args, log=print, env_cfg=None):
     solve times and plant step times (seconds; CUDA-event times on the
     card)."""
     dev, model, cfg, ctrl, gen, s, u = setup_epmc(args, env_cfg)
+    dump = TrajectoryDump(args.dump) if args.dump else None
     rewards, ep_rewards, ep_lens, t_solve, t_plant = [], [], [], [], []
     step_rewards, falls, reached, episode_ends = [], [], [], []
     diags = {"refined_cost": [], "seed_costs": []}
@@ -236,6 +253,8 @@ def run_epmc(args, log=print, env_cfg=None):
         (s, _, r, done, info), dt = _timed(
             dev, lambda: playground.step(model, cfg, s, tgt - s.robot.joint_pos, gen))
         t_plant.append(dt)
+        if dump:
+            dump.add(s.robot, reward=r, solve_ms=1e3 * t_solve[-1])
         rewards.append(float(r))
         step_rewards.append(float(r))
         falls.append(bool(info["fall"]))
@@ -256,7 +275,8 @@ def run_epmc(args, log=print, env_cfg=None):
     log(_report("EPMC", ep_rewards, ep_lens, t_solve))
     return {"step_rewards": step_rewards, "falls": falls, "reached": reached,
             "episode_ends": episode_ends, "ep_rewards": ep_rewards, "ep_lens": ep_lens,
-            "t_solve": t_solve, "t_plant": t_plant, "device": str(dev), **diags}
+            "t_solve": t_solve, "t_plant": t_plant, "device": str(dev), "dump": _save(dump, log),
+            **diags}
 
 
 def setup_sepmc(args):

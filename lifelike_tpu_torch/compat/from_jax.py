@@ -17,6 +17,7 @@ from lifelike_tpu_torch.envs.playground import PlaygroundState
 from lifelike_tpu_torch.envs.primitive import PrimitiveEnvState
 from lifelike_tpu_torch.envs.randomizer import PushConfig, PushState
 from lifelike_tpu_torch.motion.motion_lib import MotionClips
+from lifelike_tpu_torch.parallel.scenario_sweep import ScenarioBatch
 from lifelike_tpu_torch.physics.batched import TLConstants, TLState
 from lifelike_tpu_torch.physics.contact import ContactParams
 from lifelike_tpu_torch.physics.dynamics import RobotState
@@ -130,6 +131,17 @@ def primitive_env_state(e, device="cuda", dtype=None) -> PrimitiveEnvState:
 def box_scene(b, device="cuda", dtype=None) -> BoxScene:
     """scene.boxes.BoxScene (center, half, active mask, target_pos)."""
     return _fields(b, BoxScene, device, dtype)
+
+
+def scenario_batch(b, device="cuda", dtype=None) -> ScenarioBatch:
+    """parallel.scenario_sweep.ScenarioBatch (stacked arenas, robots with
+    the agent axis after the scenario axis, flags, roles); the roles stay
+    bool."""
+    dev = _device.resolve_device(device)
+    return ScenarioBatch(scene=box_scene(b.scene, dev, dtype),
+                         robots=robot_state(b.robots, dev, dtype),
+                         flag_pos=_tensor(b.flag_pos, dev, dtype),
+                         with_flag=_tensor(b.with_flag, dev))
 
 
 def playground_state(e, device="cuda", dtype=None) -> PlaygroundState:

@@ -13,10 +13,10 @@
 // summed over the horizon. The opponent's planned base position at step t
 // rides the packed reference row's columns 61-62; the task row holds the
 // flag's x, y and the role mask chaser_m (0 or 1), so one launch serves
-// either role with no host branch. Every candidate starts from the same
-// 37-value state; candidates are grouped into S scenarios of n / S
-// consecutive candidates, each with its own reference rows, task row and
-// box table. The plain PyTorch version is
+// either role with no host branch. Candidates are grouped into S scenarios
+// of n / S consecutive candidates, each with its own 37-value start state,
+// reference rows, task row and box table (a solve of one robot passes its
+// one state S times). The plain PyTorch version is
 // lifelike_tpu_torch/ops/traversal_cuda.py::rollout_chase_plain
 // (solver/rollout_tasks.py::rollout_chase_gait on
 // physics/engine_tl.py::control_step).
@@ -57,6 +57,7 @@ constexpr int kBlock = 32;                      // threads per block: one warp
 constexpr int kCandPerBlock = kBlock / kGroup;  // candidates per block
 constexpr int kOffOpp = 61;                     // 2: opponent base x, y at step t
 constexpr int kTaskWidth = 8;                   // flag x, flag y, chaser_m, pad
+constexpr int kStateLen = 37;                   // pb 3, q 4, vb 3, wb 3, jq 12, jqd 12
 constexpr int kParamLen = 37;  // host double parameter vector, see params_from_host
 
 // Chase cost settings (costs/chase.py ChaseWeights and the rollout's
@@ -133,7 +134,7 @@ __global__ void __launch_bounds__(kBlock)
   for (int i = 0; i < kTaskWidth; ++i) tk[i] = task[scen * kTaskWidth + i];
 
   LaneState<T> s;
-  load_lane_state(state, g.leg, s);
+  load_lane_state(state + scen * kStateLen, g.leg, s);
   LaneFrozen<T> fr;
   T total = T(0);
 #pragma unroll 1

@@ -1,8 +1,7 @@
 """Primitive-level (PMC) environment: batched mocap tracking on one device.
 
-Port of lifelike_tpu.envs.primitive (without the jump-obstacle option):
-dynamic robot + kinematic reference ghost, 50 Hz control / 500 Hz physics,
-observation
+Port of lifelike_tpu.envs.primitive: dynamic robot + kinematic reference
+ghost, 50 Hz control / 500 Hz physics, observation
   prop   = stack of 3 x [joint_pos 12, joint_vel 12, root_ang_vel_loc 3,
                          root_lin_vel_loc 3, e_g 3]
   prop_a = stack of 3 x last actions (12)
@@ -10,7 +9,9 @@ observation
 action = delta joint positions (12) added to the current joints and PD-held
 for the control step's substeps. Reward is the 5-term tracking reward;
 termination on fall, clip end, dyn-kin divergence or integrator blowup
-(reference primitive_level_env.py:337-348).
+(reference primitive_level_env.py:337-348), and, with set_obstacle, on
+touching the clip's current jump obstacle (motion_lib.ObstacleEvents;
+reference :173-193).
 """
 from typing import NamedTuple
 
@@ -35,6 +36,8 @@ class PrimitiveEnvConfig(NamedTuple):
         # canonical training weights, reference example_pmc_train.sh:78
         joint_pos=0.3, joint_vel=0.05, end_effector=0.1, root_pose=0.5, root_vel=0.05
     )
+    set_obstacle: bool = False  # jump-event obstacles (reference :173-193)
+    obstacle_height: float = 0.2
 
     @property
     def policy_dt(self):
@@ -110,8 +113,12 @@ def reset(model, clips, cfg: PrimitiveEnvConfig, generator, clip_probs=None, bat
     return from_robot(clips, cfg, RobotState(*ref), clip_idx, t0)
 
 
-def step(model, clips, cfg: PrimitiveEnvConfig, env: PrimitiveEnvState, action):
-    """One 50 Hz step. Returns (env', obs, reward, done, info)."""
+def step(model, clips, cfg: PrimitiveEnvConfig, env: PrimitiveEnvState, action, obstacles=None):
+    """One 50 Hz step. Returns (env', obs, reward, done, info).
+
+    obstacles: optional motion_lib.ObstacleEvents; with cfg.set_obstacle
+    the clip's jump obstacle ends the episode when a foot or the base
+    touches it (reference :337-348 done_collision)."""
     action = torch.as_tensor(action, dtype=env.robot.joint_pos.dtype,
                              device=env.robot.joint_pos.device)
     target_q = env.robot.joint_pos + action
@@ -130,6 +137,11 @@ def step(model, clips, cfg: PrimitiveEnvConfig, env: PrimitiveEnvState, action):
     done = fall | ended | diverged | blown
     # a blown-up row's reward is garbage; zero it so batches stay finite
     reward = torch.where(blown, torch.zeros_like(reward), reward)
+    if cfg.set_obstacle and obstacles is not None:
+        oxy, oyaw, oactive = motion_lib.current_obstacle(obstacles, env.clip_idx, t)
+        pts = torch.cat([kin.p_foot, robot.base_pos[..., None, :]], dim=-2)
+        done = done | (motion_lib.obstacle_collision(oxy, oyaw, cfg.obstacle_height, pts)
+                       & oactive)
 
     prop = _proprioception(robot)
     ep_ret = env.ep_ret + reward

@@ -39,6 +39,17 @@ def cross(a, b):
     return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0])
 
 
+def rotate(q, v):
+    qv = q[:3]
+    qw = q[3]
+    t = 2.0 * cross(qv, v)
+    return v + qw * t + cross(qv, t)
+
+
+def rotate_inv(q, v):
+    return rotate(inv(q), v)
+
+
 def to_matrix(q):
     """(4, *B) -> (3, 3, *B) rotation matrix."""
     x, y, z, w = q

@@ -39,6 +39,19 @@ def spatial_inertia(mass, com, inertia_com):
     return torch.cat([top, bot], dim=-2)
 
 
+def transform_inertia(R, p, I6):
+    """Express spatial inertia I6 (about its own frame) in a new frame.
+
+    The new frame sees the old frame at rotation R (old->new) and origin
+    offset p (position of old origin in new frame). Returns X I6 X^T with the
+    force transform X = [[R, 0], [px R, R]].
+    """
+    px = skew(p)
+    zeros = torch.zeros_like(R)
+    X = torch.cat([torch.cat([R, zeros], dim=-1), torch.cat([px @ R, R], dim=-1)], dim=-2)
+    return X @ I6 @ X.transpose(-1, -2)
+
+
 def cross_motion(v, m):
     """Spatial cross product v x m for motion vectors ([w; vl])."""
     w, vl = v[..., :3], v[..., 3:]

@@ -1,12 +1,15 @@
 """Mocap motion library: clips as device tensors + batched interpolation.
 
-Port of lifelike_tpu.motion.motion_lib (the parts the PMC tracking MPC
-uses). Clip format as the reference MotionLib: JSON files with
-`FrameDuration` (1/120 s) and `Frames` of 19 floats [x, y, z, qx, qy, qz, qw,
-12 joint angles], leg order FR, FL, HR, HL. All clips are packed into one
-padded (num_clips, max_len, 19) float32 tensor; interpolation lerps
-positions/joints, slerps orientation and finite-differences velocities over
-one frame step (reference motion_lib.py:117-166).
+Port of lifelike_tpu.motion.motion_lib (without the gait variants). Clip
+format as the reference MotionLib: JSON files with `FrameDuration` (1/120 s)
+and `Frames` of 19 floats [x, y, z, qx, qy, qz, qw, 12 joint angles], leg
+order FR, FL, HR, HL, read by the C++ parser (_native) with the json module
+for files it rejects. All clips are packed into one padded (num_clips,
+max_len, 19) float32 tensor; interpolation lerps positions/joints, slerps
+orientation and finite-differences velocities over one frame step
+(reference motion_lib.py:117-166). Jump-event obstacles (`ObstacleEvents`)
+are found on the host at load time; prioritized clip re-sampling
+p ~ (1 - avg_reward)^factor (`PrioritizedClipSampler`) stays on the host.
 
 Every index is clamped explicitly: a JAX gather clamps an out-of-range index
 where PyTorch would raise.
@@ -18,8 +21,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lifelike_tpu_torch import _device
+from lifelike_tpu_torch import _device, _native
 from lifelike_tpu_torch.math import quat
+from lifelike_tpu_torch.utils.obstacle import obstacles_in_frames
 
 # Future-goal horizon offsets in seconds (reference motion_lib.py:44).
 TIME_FUTURE = (1.0 / 30.0, 1.0 / 15.0, 1.0 / 3.0, 1.0)
@@ -51,7 +55,8 @@ class FrameState(NamedTuple):
 
 def load_clips(data_path, policy_step=1.0 / 50.0, limit=None, device="cuda") -> MotionClips:
     """Load JSON clip files — a directory of *.txt, one file, or a list of
-    files (clip index = position in the list)."""
+    files (clip index = position in the list). `load_clips.parsed_by` then
+    lists, per file, the path that read it: "native" or "json"."""
     if isinstance(data_path, (list, tuple)):
         files = list(data_path)
     elif os.path.isdir(data_path):
@@ -64,14 +69,22 @@ def load_clips(data_path, policy_step=1.0 / 50.0, limit=None, device="cuda") -> 
         files = [data_path]
     if limit:
         files = files[:limit]
-    frames, frame_step = [], None
+    frames, frame_step, parsed_by = [], None, []
     for f in files:
-        with open(f) as fh:
-            d = json.load(fh)
-        frames.append(np.asarray(d["Frames"], np.float32))
-        frame_step = frame_step or float(d["FrameDuration"])
+        parsed = _native.parse_clip_file(f)
+        parsed_by.append("json" if parsed is None else "native")
+        if parsed is None:
+            with open(f) as fh:
+                d = json.load(fh)
+            parsed = (np.asarray(d["Frames"], np.float32), d["FrameDuration"])
+        frames.append(parsed[0])
+        frame_step = frame_step or float(parsed[1])
+    load_clips.parsed_by = parsed_by
     return pack_clips(frames, frame_step=frame_step, policy_step=policy_step,
                       device=device)
+
+
+load_clips.parsed_by = []
 
 
 def pack_clips(frame_arrays, frame_step, policy_step=1.0 / 50.0, device="cuda") -> MotionClips:
@@ -169,6 +182,103 @@ def is_ended(clips: MotionClips, clip_idx, t):
     t = torch.as_tensor(t, device=clips.frames.device)
     frame_id = torch.floor(t / clips.frame_step).to(torch.int64)
     return frame_id >= clips.lengths.long()[_clip_index(clips, clip_idx)] - clips.margin - 1
+
+
+class ObstacleEvents(NamedTuple):
+    """Jump-event obstacles per clip, padded to K events (tensors on one
+    device), from utils.obstacle.obstacles_in_frames at load time: xy / yaw
+    the ground-projected obstacle pose, time the clip time of the jump
+    peak."""
+
+    xy: torch.Tensor  # (C, K, 2) float32
+    yaw: torch.Tensor  # (C, K) float32
+    time: torch.Tensor  # (C, K) float32, padded with +inf
+    count: torch.Tensor  # (C,) int32
+
+
+def extract_obstacles(frame_arrays, frame_step, k_max=4, device="cuda") -> ObstacleEvents:
+    dev = _device.resolve_device(device)
+    C = len(frame_arrays)
+    xy = np.zeros((C, k_max, 2), np.float32)
+    yaw = np.zeros((C, k_max), np.float32)
+    time = np.full((C, k_max), np.inf, np.float32)
+    count = np.zeros((C,), np.int32)
+    rate = int(round(1.0 / frame_step))
+    for i, f in enumerate(frame_arrays):
+        ev = obstacles_in_frames(np.asarray(f), rate)
+        if ev is None:
+            continue
+        k = min(len(ev["time"]), k_max)
+        xy[i, :k] = ev["pos"][:k, :2]
+        yaw[i, :k] = ev["yaw"][:k]
+        time[i, :k] = ev["time"][:k]
+        count[i] = k
+    return ObstacleEvents(*(torch.as_tensor(a, device=dev) for a in (xy, yaw, time, count)))
+
+
+def current_obstacle(ev: ObstacleEvents, clip_idx, t):
+    """Active obstacle pose at clip time t: the event index advances once t
+    passes event_time + 0.5 s (reference primitive_level_env.py:262-268).
+    Returns (xy (..., 2), yaw (...,), active (...,) bool)."""
+    dev = ev.time.device
+    ci = torch.as_tensor(clip_idx, device=dev).long()
+    t = torch.as_tensor(t, device=dev)
+    times = ev.time[ci]  # (..., K)
+    count = ev.count.long()[ci]
+    idx = torch.sum(t[..., None] > times + 0.5, dim=-1)
+    idx = torch.minimum(idx, torch.clamp_min(count - 1, 0))
+    xy = torch.take_along_dim(ev.xy[ci], idx[..., None, None], dim=-2)[..., 0, :]
+    yaw = torch.take_along_dim(ev.yaw[ci], idx[..., None], dim=-1)[..., 0]
+    return xy, yaw, count > 0
+
+
+def obstacle_collision(xy, yaw, height, points):
+    """True when any world point (..., P, 3) is inside the obstacle box
+    (half extents [0.025, 0.5, height] at yaw; reference :182-188)."""
+    d = points[..., :2] - xy[..., None, :]
+    cs, sn = torch.cos(yaw)[..., None], torch.sin(yaw)[..., None]
+    local_x = cs * d[..., 0] + sn * d[..., 1]
+    local_y = -sn * d[..., 0] + cs * d[..., 1]
+    inside = (local_x.abs() < 0.025) & (local_y.abs() < 0.5) & (points[..., 2] < 2.0 * height)
+    return torch.any(inside, dim=-1)
+
+
+class PrioritizedClipSampler:
+    """Host-side prioritized clip re-sampling: p ~ (1 - avg_reward)^factor
+    (reference primitive_level_env.py:236-240). Feed per-episode average
+    rewards; pass `.probabilities` (float64 on `device`) to
+    envs.primitive.reset."""
+
+    def __init__(self, num_clips, factor=3.0, device="cuda"):
+        self.device = _device.resolve_device(device)
+        self.factor = factor
+        self.avg_reward = np.zeros(num_clips)
+        self._p = np.ones(num_clips) / num_clips
+
+    def update(self, clip_idx, episode_avg_reward):
+        idx = np.asarray(clip_idx).reshape(-1)
+        r = np.asarray(episode_avg_reward).reshape(-1)
+        self.avg_reward[idx] = r
+        w = (1.0 - self.avg_reward) ** self.factor
+        self._p = w / w.sum()
+
+    def update_sums(self, reward_sum, episode_count):
+        """Batch update from per-clip accumulators: for every clip with at
+        least one ended episode, avg_reward becomes the mean episode-average
+        reward (last write wins, as the reference's per-episode assignment
+        at primitive_level_env.py:236)."""
+        cnt = np.asarray(episode_count)
+        rs = np.asarray(reward_sum)
+        seen = cnt > 0
+        if not seen.any():
+            return
+        self.avg_reward[seen] = rs[seen] / cnt[seen]
+        w = (1.0 - np.clip(self.avg_reward, 0.0, 1.0)) ** self.factor
+        self._p = w / w.sum()
+
+    @property
+    def probabilities(self):
+        return torch.as_tensor(self._p, device=self.device)
 
 
 def make_synthetic_clip(num_frames=240, frame_step=1.0 / 120.0, seed=0):

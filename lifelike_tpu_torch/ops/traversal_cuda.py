@@ -17,7 +17,9 @@ ops/traversal_pallas (K2, K3, K4).
   * `rollout_chase_fused` (K4, csrc/rollout_chase.cu) scores the candidates
     of one robot of a SEPMC chase solve against the opponent's trajectory,
     either role by a mask: a group of four lanes per candidate (one leg
-    each), eight candidates per one-warp block.
+    each), eight candidates per one-warp block. A scenario sweep
+    (parallel.scenario_sweep) passes S scenario blocks, each with its own
+    start state.
 
 Controls are deltas on the packed reference's target joints. Candidates (K2,
 K4) may be split into S scenarios (Bs / S rows each), each with its own box
@@ -266,7 +268,8 @@ def _pack_state(state: B.TLState, n_scen, dev, dtype):
 
 def _launch_candidates(kernel, c, state, controls, tab, rows, task, hp):
     """Launch K2 or K4 (a lane group per candidate) over the candidates of
-    `controls` from the one start state, S = len(tab) scenario blocks.
+    `controls` in S = len(tab) scenario blocks: K2 from the one start state,
+    K4 from each block's own (a state of batch (1, 1) serves every block).
     Returns the cost (Bs, L)."""
     dev, dtype = controls.device, controls.dtype
     S = tab.shape[0]
@@ -277,7 +280,7 @@ def _launch_candidates(kernel, c, state, controls, tab, rows, task, hp):
     n = Bs * L
     launch_geometry(kernel, n, S)
     _check("c.joint_offset", c.joint_offset, dev, dtype)
-    st = _pack_state(state, 1, dev, dtype)
+    st = _pack_state(state, S if kernel is CHASE_KERNEL else 1, dev, dtype)
     model = _packed_model(c)
     cost = torch.empty((Bs, L), dtype=dtype, device=dev)
     fn = _fn(kernel, dtype)
@@ -512,21 +515,31 @@ def rollout_chase_plain(c: B.TLConstants, params, state: B.TLState, controls, bo
     tab, rows, task = chase_inputs(controls, boxes, ref, opp_traj, flag_pos, is_chaser)
     S, H = tab.shape[0], controls.shape[0]
     _check_launch(controls, S)
+    _check_chase_state(state, S)
     bs = controls.shape[3] // S
     costs = []
     for k in range(S):
         opp = rows[k, :, OFF_OPP:OFF_OPP + 2].reshape(H, 2, 1, 1)
+        st = B.map_state(lambda x, k=k: x[..., k:k + 1, :] if x.shape[-2] > 1 else x, state)
         cost, _ = rollout_tasks.rollout_chase_gait(
-            c, params, state, controls[:, :, :, k * bs:(k + 1) * bs], _scene_tl(tab[k:k + 1]),
+            c, params, st, controls[:, :, :, k * bs:(k + 1) * bs], _scene_tl(tab[k:k + 1]),
             _unpack_reference(rows[k]), opp, task[k, :2], task[k, 2], weights, gait_weight,
             gait_vel_weight)
         costs.append(cost)
     return torch.cat(costs, dim=0)
 
 
+def _check_chase_state(state: B.TLState, n_scen):
+    for name, x in zip(B.TLState._fields, state):
+        if tuple(x.shape[-2:]) not in ((1, 1), (n_scen, 1)):
+            raise ValueError(f"state.{name}: batch {tuple(x.shape[-2:])}, expected (1, 1) or "
+                             f"one start state per scenario, ({n_scen}, 1)")
+
+
 def _launch_chase(c, params, state, controls, boxes, ref, opp_traj, flag_pos, is_chaser, weights,
                   gait_weight, gait_vel_weight):
     tab, rows, task = chase_inputs(controls, boxes, ref, opp_traj, flag_pos, is_chaser)
+    _check_chase_state(state, tab.shape[0])
     hp = chase_host_params(params, weights, controls.shape[0], tab.shape[1], gait_weight,
                            gait_vel_weight)
     cost = _launch_candidates(CHASE_KERNEL, c, state, controls, tab, rows, task, hp)
@@ -539,15 +552,16 @@ def rollout_chase_fused(c: B.TLConstants, params, state: B.TLState, controls, bo
                         gait_weight=1.0, gait_vel_weight=0.02):
     """Total chase cost (Bs, L) of one robot's candidates `controls`
     (H, 4, 3, Bs, L) — joint-target deltas on the reference's target
-    joints — all rolled from the one start state `state` (TLState with
-    batch (1, 1)) against the arena table `boxes` and the opponent's
-    trajectory `opp_traj`; is_chaser selects the role. See `chase_inputs`
-    for the accepted forms. With gait_weight = 0 and a constant reference at
-    the current joints it computes rollout_tasks.rollout_chase.
+    joints — rolled from the start state `state` against the arena table
+    `boxes` and the opponent's trajectory `opp_traj`; is_chaser selects the
+    role. See `chase_inputs` for the accepted forms; with S scenario blocks,
+    `state` has batch (1, 1) (one start for all) or (S, 1) (block k's rows
+    start from state k, as a scenario sweep needs). With gait_weight = 0 and
+    a constant reference at the current joints it computes
+    rollout_tasks.rollout_chase.
 
     CUDA tensors: the hand-written kernel K4 (counted in
     `rollout_chase_fused.launches`). CPU tensors: rollout_chase_plain."""
-    _check_state(state)
     return _dispatch(controls, _launch_chase, rollout_chase_plain,
                      (c, params, state, controls, boxes, ref, opp_traj, flag_pos, is_chaser,
                       weights, gait_weight, gait_vel_weight))

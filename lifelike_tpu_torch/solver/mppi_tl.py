@@ -36,6 +36,14 @@ def _smooth_noise_tl(generator, shape, beta, dtype, device, eps=None):
     return out
 
 
+def finite_costs(total_cost):
+    """Candidate costs with every non-finite one (a rollout that blew up) set
+    to +inf: its softmax weight is then 0, where the reference's NaN would
+    spread over the whole update (solver.ilqr treats its line-search costs
+    alike)."""
+    return torch.where(torch.isfinite(total_cost), total_cost, torch.inf)
+
+
 def _topk(u_cand, total_cost, k):
     """The k cheapest candidates (k, H, 4, 3) and their costs (k,). The
     first k of a stable ascending sort: ties go to the lower candidate
@@ -52,7 +60,8 @@ def mppi_update(cfg: MPPIConfig, generator, u_nominal, score, eps=None, return_t
     The population is laid out as (K / 128, 128) when 128 divides it, else
     (1, K); score(u_cand (H, 4, 3, Bs, L)) -> total cost (Bs, L). eps:
     optional sequence of `cfg.iterations` raw normal tensors (H, 4, 3, Bs, L)
-    used instead of drawing from `generator`. return_topk: if > 0, the
+    used instead of drawing from `generator`. A candidate whose cost is not
+    finite gets weight 0 (finite_costs). return_topk: if > 0, the
     diagnostics gain 'u_topk' (k, H, 4, 3) and 'cost_topk' (k,), the last
     iteration's k cheapest raw candidates (the seeds of solver.hybrid's iLQR
     refinement).
@@ -71,12 +80,12 @@ def mppi_update(cfg: MPPIConfig, generator, u_nominal, score, eps=None, return_t
             eps=None if eps is None else eps[it],
         )
         u_cand = (u[..., None, None] + noise).contiguous()  # (H,4,3,Bs,L)
-        total_cost = score(u_cand)
+        total_cost = finite_costs(score(u_cand))
         c_min = torch.min(total_cost)
         w = torch.softmax((-(total_cost - c_min) / cfg.temperature).reshape(-1), dim=0)
         w = w.reshape(total_cost.shape)
         u = torch.sum(u_cand * w, dim=(-2, -1))
-        c_mean = torch.sum(w * total_cost)
+        c_mean = torch.sum(torch.where(w > 0, w * total_cost, 0.0))
     diag = {"best_cost": c_min, "weighted_cost": c_mean}
     if return_topk:
         diag["u_topk"], diag["cost_topk"] = _topk(u_cand, total_cost, return_topk)

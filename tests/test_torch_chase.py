@@ -269,8 +269,9 @@ def _check_rollouts_float64(rng):
 
 def _check_scenarios(c, p):
     """K4's S = 4 scenario blocks (own box table, reference rows, opponent
-    path, flag and role each) equal one call per scenario; K3's S = 4 plans
-    (own start states, tables and references) equal one call per plan."""
+    path, flag and role each, and one shared or an own start state) equal
+    one call per scenario; K3's S = 4 plans (own start states, tables and
+    references) equal one call per plan."""
     pp = _params(1, 1)[1]
     S = 4
     tab = traversal_cuda.pack_boxes(p["scene"])
@@ -300,9 +301,17 @@ def _check_scenarios(c, p):
                                                                    states),
                                                 plans[k], tabs[k], refs[k])
         assert_close(traj[:, :, k:k + 1], one, rtol=1e-12, atol=1e-12)
+    # K4 with one start state per scenario block (a scenario sweep's call)
+    per = traversal_cuda.rollout_chase_fused(c, pp, states, u, tabs, refs, opps, flags, roles)
+    for k in range(S):
+        one = traversal_cuda.rollout_chase_fused(
+            c, pp, B.map_state(lambda x: x[..., k:k + 1, :], states),
+            u[:, :, :, k:k + 1].contiguous(), tabs[k], refs[k], opps[k], flags[k], roles[k])
+        assert_close(per[k:k + 1], one, rtol=0, atol=0)
     # what the kernels cannot take is refused, not broadcast
-    with pytest.raises(ValueError, match="batch"):  # K4: one start state per launch
-        traversal_cuda.rollout_chase_fused(c, pp, states, u, tabs, refs, opps, flags, roles)
+    with pytest.raises(ValueError, match="batch"):  # K4: one start state, or one per block
+        traversal_cuda.rollout_chase_fused(c, pp, B.map_state(lambda x: x[..., :2, :], states),
+                                           u, tabs, refs, opps, flags, roles)
     with pytest.raises(ValueError, match="tables"):  # K3: one table per plan
         traversal_cuda.rollout_plan_fused(c, pp, states, plans, tabs[:2], refs)
 

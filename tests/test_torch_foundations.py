@@ -11,13 +11,14 @@ import torch
 
 from lifelike_tpu.math import quat as jquat
 from lifelike_tpu.math import quat_tl as jquat_tl
+from lifelike_tpu.math import spatial as jspatial
 from lifelike_tpu.motion import motion_lib as jml
 from lifelike_tpu.physics import batched as JB
 from lifelike_tpu.physics.dynamics import RobotState as JRobotState
 from lifelike_tpu.robot.model import build_max_model as j_build_max_model
 from lifelike_tpu.solver import rollout_tl as jrollout_tl
 from lifelike_tpu_torch.compat import from_jax
-from lifelike_tpu_torch.math import quat, quat_tl
+from lifelike_tpu_torch.math import quat, quat_tl, spatial
 from lifelike_tpu_torch.motion import motion_lib
 from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.robot.model import MaxModel, build_max_model
@@ -85,9 +86,12 @@ def _check_quat_ops_match_reference():
     yaw = rng.uniform(-4.0, 4.0, size=16)
     # tile layout: component axis leading
     qa, qb, w = q1.T.reshape(4, 4, 4), q2.T.reshape(4, 4, 4), rv.T.reshape(3, 4, 4)
+    vt = v.T.reshape(3, 4, 4)
+    i6 = rng.standard_normal((16, 6, 6))
+    i6 = i6 @ i6.transpose(0, 2, 1)
 
     @jax.jit
-    def reference(q1, q2, v, rv, t, yaw, qa, qb, w):
+    def reference(q1, q2, v, rv, t, yaw, qa, qb, w, vt, i6):
         return dict(
             mul=jquat.mul(q1, q2), rotate=jquat.rotate(q1, v),
             rotate_inv=jquat.rotate_inv(q1, v), to_matrix=jquat.to_matrix(q1),
@@ -97,9 +101,11 @@ def _check_quat_ops_match_reference():
             yaw=jquat.yaw(q1), from_yaw=jquat.from_yaw(yaw),
             rel_angle_tl=jquat_tl.rel_angle(qa, qb), integrate_tl=jquat_tl.integrate(qa, w, 0.002),
             to_matrix_tl=jquat_tl.to_matrix(qa), yaw_tl=jrollout_tl.yaw_tl(qa),
+            rotate_tl=jquat_tl.rotate(qa, vt), rotate_inv_tl=jquat_tl.rotate_inv(qa, vt),
+            transform_inertia=jspatial.transform_inertia(jquat.to_matrix(q1), rv, i6),
         )
 
-    want = reference(*(jnp.asarray(x) for x in (q1, q2, v, rv, t, yaw, qa, qb, w)))
+    want = reference(*(jnp.asarray(x) for x in (q1, q2, v, rv, t, yaw, qa, qb, w, vt, i6)))
     T = torch.as_tensor
     got = dict(
         mul=quat.mul(T(q1), T(q2)), rotate=quat.rotate(T(q1), T(v)),
@@ -110,6 +116,8 @@ def _check_quat_ops_match_reference():
         yaw=quat.yaw(T(q1)), from_yaw=quat.from_yaw(T(yaw)),
         rel_angle_tl=quat_tl.rel_angle(T(qa), T(qb)), integrate_tl=quat_tl.integrate(T(qa), T(w), 0.002),
         to_matrix_tl=quat_tl.to_matrix(T(qa)), yaw_tl=rollout_tl.yaw_tl(T(qa)),
+        rotate_tl=quat_tl.rotate(T(qa), T(vt)), rotate_inv_tl=quat_tl.rotate_inv(T(qa), T(vt)),
+        transform_inertia=spatial.transform_inertia(quat.to_matrix(T(q1)), T(rv), T(i6)),
     )
     for name, g in got.items():
         np.testing.assert_allclose(g.numpy(), np.asarray(want[name]), **TOL, err_msg=name)

@@ -81,19 +81,11 @@ def test_plant_meets_golden_traces():
     assert float(lam[24:93].abs().max()) > 0.0  # box rows carried impulses
 
 
-# the jump-obstacle option of envs.primitive is not ported (ROADMAP.md Queue 1
-# item 4): the reference's config carries it, off by default
-NOT_PORTED = {"PrimitiveEnvConfig": {"set_obstacle": False, "obstacle_height": 0.2}}
-
-
 def _same_config(got, want, path="cfg"):
     """Field by field: the same NamedTuple layout, equal leaves."""
     if hasattr(want, "_fields"):
         assert type(got).__name__ == type(want).__name__, path
-        absent = NOT_PORTED.get(type(want).__name__, {})
-        assert got._fields == tuple(f for f in want._fields if f not in absent), path
-        for f, default in absent.items():
-            assert getattr(want, f) == default, f"{path}.{f}"
+        assert got._fields == want._fields, path
         for f in got._fields:
             _same_config(getattr(got, f), getattr(want, f), f"{path}.{f}")
     elif isinstance(want, (tuple, list)):

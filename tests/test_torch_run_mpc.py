@@ -30,6 +30,7 @@ from lifelike_tpu_torch.ops import rollout_cuda
 from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.robot.model import build_max_model
 from lifelike_tpu_torch.solver import mppi, mppi_tl
+from lifelike_tpu_torch.utils import trajectory
 
 from tests.torch_port_util import CPU, F64, assert_close, assert_tree_close
 
@@ -91,12 +92,25 @@ def test_closed_loop_matches_reference_with_same_noise():
     assert rollout_cuda.rollout_tracking_fused.launches == launches
 
 
-def _check_run_mpc_cpu_reports_finite_rewards():
+def _check_run_mpc_cpu_reports_finite_rewards(tmp_path):
+    """The PMC loop on the CPU, its --dump written with the reference's keys
+    (utils.trajectory) and rendered by tools/plot_traj.py."""
+    path = str(tmp_path / "traj.npz")
     out = run_mpc.main(["--task=pmc", "--device=cpu", "--population=128", "--horizon=3",
-                        "--steps=2", "--seed=1"])
+                        "--steps=2", "--seed=1", f"--dump={path}"])
     assert len(out["step_rewards"]) == 2 and np.isfinite(out["step_rewards"]).all()
     assert len(out["t_solve"]) == 2
     assert run_mpc._report("PMC", [1.0], [2], [0.1, 0.2]).startswith("PMC MPC eval: 1 episodes")
+    assert out["dump"] == path
+    data = trajectory.load(path)
+    assert sorted(data) == sorted(list(JRobotState._fields) + ["reward", "solve_ms"])
+    assert data["base_pos"].shape == (2, 3) and data["joint_pos"].shape == (2, 12)
+    np.testing.assert_allclose(data["reward"], out["step_rewards"], rtol=1e-6)
+    png = str(tmp_path / "traj.png")
+    proc = subprocess.run([sys.executable, "tools/plot_traj.py", path, "-o", png], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert os.path.getsize(png) > 10_000
 
 
 def _check_profile_mpc_cpu():
@@ -143,7 +157,8 @@ assert len(names) >= 20, names
 for m in ("envs.chase_tag", "scene.arena_gen", "scene.arena_fixed", "costs.chase",
           "ops.traversal_cuda", "solver.mpc_tasks", "physics.impulse", "ops.pgs_cuda",
           "envs.factory", "physics.oracle_traces", "solver.ilqr", "solver.riccati_cuda",
-          "solver.hybrid"):
+          "solver.hybrid", "parallel.scenario_sweep", "_native", "utils.obstacle",
+          "utils.trajectory", "solver.mppi", "solver.rollout"):
     assert "lifelike_tpu_torch." + m in names, m
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -168,11 +183,11 @@ def _check_chip_smoke_fails_alone(tmp_path):
 
 
 def test_entry_point_contract(tmp_path):
-    """run_mpc and profile_mpc (both tasks) on the CPU; no JAX / absl /
-    lifelike_tpu in the port's imports; chip_smoke.py alone in a directory
-    fails; and, where no card is present, run_mpc without --device=cpu and
-    chip_smoke.py in the repo fail."""
-    _check_run_mpc_cpu_reports_finite_rewards()
+    """run_mpc (with --dump) and profile_mpc (both tasks) on the CPU; no
+    JAX / absl / lifelike_tpu in the port's imports; chip_smoke.py alone in
+    a directory fails; and, where no card is present, run_mpc without
+    --device=cpu and chip_smoke.py in the repo fail."""
+    _check_run_mpc_cpu_reports_finite_rewards(tmp_path)
     _check_profile_mpc_cpu()
     _check_port_imports_no_jax_and_no_reference_package()
     _check_chip_smoke_fails_alone(tmp_path)
