@@ -130,6 +130,27 @@ result line:
      chain floor: the depth of a step x H x 4 cycles) at the hybrid's S 8 /
      H 50 in float32 and float64 and at S 1; where one hybrid PMC solve's
      time goes (MPPI stage, seed rollout, linearize, sweeps, line search);
+ 12. the policy networks (models/, no kernel of their own: dense layers on
+     cuBLAS, convolutions on cuDNN, at full float32 precision) and the
+     policy-evaluation entry point: (a) the card's forward against the
+     CPU's, float32: PMCNet with the repo's trained pool checkpoint
+     (lifelike_tpu_torch/data/pmc_r5/model_0009660.model, read by the port's
+     ModelPool) at B 8 and B 4096, EPMCNet and SEPMCNet with seeded weights
+     passed through the port's TLeague import of a seeded flat variable
+     list at B 8, 3 recurrent steps with a mask reset and the sampled
+     indices / angles injected; mean, logstd, value, z / z_logits, hs (and
+     the HLC mean) within 1e-5 x max(1, |x|), the PMC z index equal except
+     where the CPU's argmin gap is below 1e-4 (counted); entry.entry()'s
+     forward on the card, finite and shaped; (b) bin/run_eval
+     on the card, each run with every kernel count set to 0 first: PMC with
+     the pool checkpoint on the synthetic clip (one episode of up to
+     EVAL_STEPS["pmc"] steps), EPMC on hurdles on the hard-contact plant
+     (K5's launches = steps x 10 substeps, no other kernel), SEPMC from a
+     random init; reward sums, lengths and ms per control step split into
+     policy forward and plant step (CUDA events); (c) forward latency (ms
+     p50 over NET_REPS calls after warm-up, CUDA events) and device
+     kernels per forward (torch.profiler): PMCNet at B 1 and B 4096,
+     EPMCNet at B 1, SEPMCNet at B 2;
 then one JSON line listing the six kernels, the nvidia-smi line, and last
 the result line {"ok": true, "device": {...}}. Needs one card; builds the
 kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
@@ -160,6 +181,7 @@ times.
 import importlib.util
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -193,11 +215,17 @@ OPS_PER_SWEEP = {60: 4728, 129: 10248}
 # iterations x CHAIN_CYCLES cycles
 SWEEP_DEPTH = {60: 540, 129: 1161}
 IMPULSE_B, IMPULSE_SUBSTEPS = 256, 10  # bench.py bench_impulse's shape
+# phase 12: the policy networks and bin/run_eval
+POOL_MODEL = os.path.join(os.path.dirname(os.path.abspath(__file__)),  # runs/pmc_r5/pool's
+                          "lifelike_tpu_torch/data/pmc_r5/model_0009660.model")
+NET_TOL, VQ_GAP = 1e-5, 1e-4
+NET_B, NET_REPS = 8, 50
+EVAL_STEPS = {"pmc": 50, "epmc": 20, "sepmc": 20}
 # K6: the MPPI->iLQR hybrid at bench.py bench_hybrid's width (population
 # pop // 4 = 1024, H 50, n_refine 7: S = 8 scenarios) with run_mpc's default
 # 2 iLQR iterations; its PMC loop runs HYB_STEPS control steps, the EPMC and
 # SEPMC hybrid loops HYB_TASK_STEPS at horizon HYB_TASK_HORIZON, 1 iteration.
-HYB_POP, HYB_REFINE, HYB_ITERS, HYB_STEPS = 1024, 7, 2, 3
+HYB_POP, HYB_REFINE, HYB_ITERS, HYB_STEPS = 1024, 7, 2, 2
 HYB_TASK_HORIZON, HYB_TASK_STEPS = 10, 2
 RICCATI_N, RICCATI_M, RICCATI_S = 37, 12, HYB_REFINE + 1
 # operations and float32 bytes of one Riccati step of one scenario, printed
@@ -1578,6 +1606,233 @@ def check_clip_parser():
         f"to the json module's")
 
 
+def net_err(label, got, want, rows=None):
+    """max |got - want| / max(1, |want|) of a card output against the CPU's
+    (over `rows` when given); exits above NET_TOL."""
+    import torch
+
+    g, w = got.detach().cpu().double(), want.detach().double()
+    if rows is not None:
+        g, w = g[rows], w[rows]
+    err = float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) if w.numel() else 0.0
+    if not err <= NET_TOL:
+        raise SystemExit(f"{label}: card vs CPU {err:.3e} > {NET_TOL:g} x max(1, |x|)")
+    return err
+
+
+def seeded_flat_list(paths, template, seed):
+    """A seeded stand-in for a reference checkpoint's flat variable list
+    (TF shapes): kernels N(0, 1 / fan_in), positive rms std, unit-ish
+    layer-norm gains, small biases."""
+    import numpy as np
+
+    from lifelike_tpu_torch.compat import tleague_import
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for path, shape in zip(paths, tleague_import.flat_shapes(paths, template)):
+        name = path[-1]
+        if name == "moving_std":
+            a = 0.5 + rng.uniform(size=shape)
+        elif name in ("kernel", "wx", "wh"):
+            a = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name.endswith("gamma"):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name in ("logstd", "hlc_logvar"):
+            a = -1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            a = 0.3 * rng.standard_normal(shape)
+        out.append(a.astype(np.float32))
+    return out
+
+
+def net_obs(kind, b, seed):
+    """Seeded observations of a level's policy at batch b (CPU, float32)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    n = lambda *shape: torch.randn((b,) + shape, generator=g)
+    u = lambda hi, *shape: hi * torch.rand((b,) + shape, generator=g)
+    if kind == "pmc":
+        return n(99), n(36), n(72)
+    obs = dict(prop=n(99), prop_a=n(36), percep_2d=u(0.6, 25, 13), percep_1d=u(3.0, 128),
+               percep_front=u(0.6, 25, 13))
+    if kind == "epmc":
+        return dict(obs, target=n(3))
+    obs = {k.replace("percep_", "percept_"): v for k, v in obs.items()}
+    for k, w in (("percept_vec", 5), ("oppo_info", 15), ("oppo_info_cheat", 15),
+                 ("flag_info", 7), ("flag_info_cheat", 7), ("with_flag", 2)):
+        obs[k] = n(w)
+    return dict(obs, control_spd=0.5 + u(2.5, 1))
+
+
+def vq_gap(net, prop, prop_a, future):
+    """Distance between the nearest and the second-nearest codebook rows of
+    each PMC latent (the margin of the VQ argmin)."""
+    import torch
+
+    with torch.no_grad():
+        prop_rms, _ = net.prop_rms(net._prop_in(prop, prop_a))
+        fut, _ = net.future_rms(future)
+        z = net.z_out(net.encoder(torch.cat([prop_rms, fut], dim=-1)))
+        cb = net.llc.embedding
+        d = (z ** 2).sum(-1, keepdim=True) - 2.0 * z @ cb + (cb ** 2).sum(0)
+        two = torch.topk(d, 2, dim=-1, largest=False).values
+    return two[..., 1] - two[..., 0]
+
+
+def check_networks():
+    """Phase 12a: each policy network's forward on the card against the
+    CPU's, float32. Returns the three nets on the card (for 12c)."""
+    import copy
+
+    import torch
+
+    from lifelike_tpu_torch.compat import tleague_import
+    from lifelike_tpu_torch.learning import registry
+    from lifelike_tpu_torch.models import epmc, params, pmc, sepmc
+
+    cpu = pmc.load_params(pmc.PMCNet(), registry.ModelPool().load_file("pool", POOL_MODEL))
+    card = {"pmc": copy.deepcopy(cpu).cuda()}
+    for b in (8, 4096):
+        obs = net_obs("pmc", b, seed=b)
+        with torch.no_grad():
+            want = cpu(*obs)
+            got = card["pmc"](*(x.cuda() for x in obs))
+        same = got.z_idx.cpu() == want.z_idx
+        gap = vq_gap(cpu, *obs)
+        if bool((gap[~same] >= VQ_GAP).any()):
+            raise SystemExit(f"PMCNet B {b}: z index differs where the CPU's argmin gap is "
+                             f"{float(gap[~same].max()):.3e} >= {VQ_GAP:g}")
+        errs = {k: net_err(f"PMCNet B {b} {k}", getattr(got, k), getattr(want, k), same)
+                for k in ("mean", "logstd", "z")}
+        errs["value"] = net_err(f"PMCNet B {b} value", got.value, want.value)
+        say(f"check PMCNet pool checkpoint B {b}: z index equal on {int(same.sum())} of {b} "
+            f"rows ({b - int(same.sum())} differ, all with a CPU argmin gap < {VQ_GAP:g}; "
+            f"{int((gap < VQ_GAP).sum())} rows have such a gap) | max err / max(1, |x|): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    for kind, cls, paths, importer, load in (
+            ("epmc", epmc.EPMCNet, tleague_import.EPMC_PATHS, tleague_import.import_epmc,
+             epmc.load_params),
+            ("sepmc", sepmc.SEPMCNet, tleague_import.SEPMC_PATHS, tleague_import.import_sepmc,
+             sepmc.load_params)):
+        template = params.flax_tree(cls())
+        tree = importer(seeded_flat_list(paths, template, seed=len(paths)))
+        cpu = load(cls(), tree)
+        card[kind] = copy.deepcopy(cpu).cuda()
+        b, g = NET_B, torch.Generator().manual_seed(len(paths))
+        hs_cpu = 0.5 * torch.randn((b, cpu.cfg.hs_len), generator=g)
+        hs_card = hs_cpu.cuda()
+        fields = ["mean", "logstd", "value", "z_logits", "hs"] + (["hlc_mean"] if kind == "sepmc"
+                                                                  else [])
+        errs = dict.fromkeys(fields, 0.0)
+        for step in range(3):
+            obs = net_obs(kind, b, seed=100 * len(paths) + step)
+            mask = torch.zeros(b)
+            if step == 1:
+                mask[0] = 1.0  # robot 0's episode restarts
+            z_idx = torch.randint(0, 256, (b,), generator=g)
+            acts = ((z_idx,) if kind == "epmc"
+                    else (torch.rand((b, 1), generator=g) * 6.2 - 3.1, z_idx))
+            with torch.no_grad():
+                want = cpu(obs, hs_cpu, mask, *acts)
+                got = card[kind]({k: v.cuda() for k, v in obs.items()}, hs_card, mask.cuda(),
+                                 *(a.cuda() for a in acts))
+            for k in fields:
+                errs[k] = max(errs[k], net_err(f"{type(cpu).__name__} step {step} {k}",
+                                               getattr(got, k), getattr(want, k)))
+            hs_cpu, hs_card = want.hs, got.hs
+        say(f"check {type(cpu).__name__} (seeded flat list through the TLeague import) B {b}, 3 "
+            f"steps, mask reset at step 1, indices injected | max err / max(1, |x|): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    from lifelike_tpu_torch import entry
+
+    fn, args = entry.entry()
+    mean, value = fn(*args)
+    if (mean.shape, value.shape) != ((entry.B, 12), (entry.B, 1)) or not (
+            bool(torch.isfinite(mean).all()) and bool(torch.isfinite(value).all())):
+        raise SystemExit(f"entry(): mean {tuple(mean.shape)}, value {tuple(value.shape)}")
+    say(f"entry(): the PMCNet forward at B {entry.B} on {mean.device}: mean "
+        f"{tuple(mean.shape)}, value {tuple(value.shape)}, finite")
+    return card
+
+
+def run_evals(launches_of):
+    """Phase 12b: bin/run_eval for the three levels on the card, each with
+    every kernel count set to 0 first."""
+    import statistics as st
+
+    from lifelike_tpu_torch.bin import run_eval
+
+    runs = {"pmc": [f"--model_path={POOL_MODEL}", "--clip=synthetic"],
+            "epmc": ["--env_config={'hard_contact': True, "
+                     "'env_randomize_config': {'element_id': 1}}"],
+            "sepmc": []}
+    for task, flags in runs.items():
+        for k in launches_of:
+            k.launches = 0
+        out = run_eval.main([f"--task={task}", "--device=cuda", "--episodes=1", "--seed=0",
+                             f"--max_steps={EVAL_STEPS[task]}"] + flags,
+                            log=lambda m: say(f"run_eval {task}: " + m))
+        launches = [k.launches for k in launches_of]
+        n = sum(out["episode_lengths"])
+        flat = [x for r in out["step_rewards"] for x in (r if isinstance(r, list) else [r])]
+        if not all(math.isfinite(x) for x in flat + out["max_abs_action"]):
+            raise SystemExit(f"run_eval {task}: non-finite rewards or actions")
+        want = [0] * len(launches_of)
+        if task == "epmc":
+            want[4] = n * IMPULSE_SUBSTEPS  # K5: the hard-contact plant's sweeps
+        if launches != want:
+            raise SystemExit(f"run_eval {task}: kernel launches (K1-K6) {launches}, expected "
+                             f"{want}")
+        fwd, plant = out["fwd_ms"][1:] or out["fwd_ms"], out["step_ms"][1:] or out["step_ms"]
+        say(f"run_eval {task} on the card: {n} steps, reward sums {out['episode_rewards']}, "
+            f"lengths {out['episode_lengths']} | ms per control step after the first (CUDA "
+            f"events): policy forward p50 {st.median(fwd):.3f} max {max(fwd):.3f}, plant step "
+            f"p50 {st.median(plant):.3f} max {max(plant):.3f} | kernel launches (K1-K6) "
+            f"{launches}")
+
+
+def time_networks(card):
+    """Phase 12c: forward latency of each policy on the card (ms p50 over
+    NET_REPS calls after warm-up) and its device kernels per forward."""
+    import torch
+
+    cases = [("PMCNet", "pmc", 1), ("PMCNet", "pmc", 4096), ("EPMCNet", "epmc", 1),
+             ("SEPMCNet", "sepmc", 2)]
+    for name, kind, b in cases:
+        net = card[kind]
+        obs = net_obs(kind, b, seed=7)
+        if kind == "pmc":
+            args = tuple(x.cuda() for x in obs)
+        else:
+            hs = torch.zeros((b, net.cfg.hs_len), device="cuda")
+            args = ({k: v.cuda() for k, v in obs.items()}, hs, torch.zeros(b, device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        kw = {} if kind == "pmc" else {"generator": gen}
+
+        def fwd():
+            with torch.no_grad():
+                return net(*args, **kw)
+
+        for _ in range(5):
+            fwd()
+        ms = []
+        for _ in range(NET_REPS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fwd()
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        kernels = call_kernels(fwd)
+        say(f"forward {name} B {b}: p50 {statistics.median(ms):.4f} ms, min {min(ms):.4f}, max "
+            f"{max(ms):.4f} over {NET_REPS} calls (CUDA events) | {sum(kernels.values()):g} "
+            f"device kernels / copies per forward")
+
+
 def bound(ops, nbytes):
     """(bound ms, what bounds it, ops ms, bytes ms) on this card's peaks."""
     ops_ms, bytes_ms = 1e3 * ops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_HBM_BYTES
@@ -1886,6 +2141,13 @@ def main():
     timing["K5"] = time_pgs()
     timing["K6"] = time_riccati()
     hybrid_breakdown(timing["K6"]["ms"])
+
+    # 12. the policy networks: card vs CPU, bin/run_eval on the card, latency
+    t12 = time.perf_counter()
+    card = check_networks()
+    run_evals(fns)
+    time_networks(card)
+    say(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
     say(json.dumps({"kernels": [
         dict(name=KERNELS[k]["name"], route="cuda", source=KERNELS[k]["source"],

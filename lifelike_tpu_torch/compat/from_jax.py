@@ -6,7 +6,9 @@ states and references that flow between its layers. Each function here
 takes one of those structures as the JAX package holds it — any object with
 the same field names whose leaves are numpy arrays (or array-likes such as
 a jax.Array converted by np.asarray) — and returns the port's structure on a
-given device and dtype. Nothing here imports JAX or the JAX package.
+given device and dtype. The policy networks' weights come over as their
+Flax parameter trees (`pmc_params`, `epmc_params`, `sepmc_params`). Nothing
+here imports JAX or the JAX package.
 """
 import numpy as np
 import torch
@@ -16,6 +18,7 @@ from lifelike_tpu_torch.envs.chase_tag import ChaseTagConfig, ChaseTagState
 from lifelike_tpu_torch.envs.playground import PlaygroundState
 from lifelike_tpu_torch.envs.primitive import PrimitiveEnvState
 from lifelike_tpu_torch.envs.randomizer import PushConfig, PushState
+from lifelike_tpu_torch.models import epmc, pmc, sepmc
 from lifelike_tpu_torch.motion.motion_lib import MotionClips
 from lifelike_tpu_torch.parallel.scenario_sweep import ScenarioBatch
 from lifelike_tpu_torch.physics.batched import TLConstants, TLState
@@ -184,3 +187,26 @@ def chase_tag_config(cfg) -> ChaseTagConfig:
         visible_angle=float(cfg.visible_angle),
         control_spd_range=tuple(float(x) for x in cfg.control_spd_range),
     )
+
+
+def pmc_params(tree, cfg=None, device="cuda", dtype=torch.float32) -> pmc.PMCNet:
+    """A PMCNet (models.pmc.PMCConfig `cfg`, default the canonical one)
+    holding the weights of a Flax-layout tree (`PMCNet().init` output, a
+    ModelPool snapshot), on `device` in `dtype`."""
+    dev = _device.resolve_device(device)
+    net = pmc.PMCNet(cfg or pmc.PMCConfig()).to(device=dev, dtype=dtype)
+    return pmc.load_params(net, tree)
+
+
+def epmc_params(tree, cfg=None, device="cuda", dtype=torch.float32) -> epmc.EPMCNet:
+    """An EPMCNet holding the weights of a Flax-layout EPMCNet tree."""
+    dev = _device.resolve_device(device)
+    net = epmc.EPMCNet(cfg or epmc.EPMCConfig()).to(device=dev, dtype=dtype)
+    return epmc.load_params(net, tree)
+
+
+def sepmc_params(tree, cfg=None, device="cuda", dtype=torch.float32) -> sepmc.SEPMCNet:
+    """A SEPMCNet holding the weights of a Flax-layout SEPMCNet tree."""
+    dev = _device.resolve_device(device)
+    net = sepmc.SEPMCNet(cfg or sepmc.SEPMCConfig()).to(device=dev, dtype=dtype)
+    return sepmc.load_params(net, tree)

@@ -90,16 +90,24 @@ def _physics(env_config, kd_default, tau_default):
     )
 
 
+SYNTHETIC_SECONDS = 30.0  # length of the synthetic clip of data_path="synthetic"
+
+
 def create_tracking_game(device="cuda", **env_config) -> EnvBundle:
-    """PMC mocap-tracking env (reference create_pybullet_envs.py:21-64)."""
+    """PMC mocap-tracking env (reference create_pybullet_envs.py:21-64).
+    data_path "synthetic" tracks motion_lib.make_synthetic_clip (30 s at
+    120 Hz) and needs no mocap data."""
     assert env_config.get("arena_id", "LeggedRobotTracking") == "LeggedRobotTracking"
     dev = _device.resolve_device(device)
     model = build_max_model()
-    clips = motion_lib.load_clips(
-        env_config["data_path"],
-        policy_step=1.0 / env_config.get("control_freq", 50.0),
-        device=dev,
-    )
+    policy_step = 1.0 / env_config.get("control_freq", 50.0)
+    if env_config["data_path"] == "synthetic":
+        frames = motion_lib.make_synthetic_clip(int(120 * SYNTHETIC_SECONDS))
+        clips = motion_lib.pack_clips([frames], frame_step=1.0 / 120.0, policy_step=policy_step,
+                                      device=dev)
+    else:
+        clips = motion_lib.load_clips(env_config["data_path"], policy_step=policy_step,
+                                      device=dev)
     rw = env_config.get("reward_weights", None)
     cfg = primitive.PrimitiveEnvConfig(
         params=_physics(env_config, kd_default=0.5, tau_default=18.0),

@@ -158,7 +158,9 @@ for m in ("envs.chase_tag", "scene.arena_gen", "scene.arena_fixed", "costs.chase
           "ops.traversal_cuda", "solver.mpc_tasks", "physics.impulse", "ops.pgs_cuda",
           "envs.factory", "physics.oracle_traces", "solver.ilqr", "solver.riccati_cuda",
           "solver.hybrid", "parallel.scenario_sweep", "_native", "utils.obstacle",
-          "utils.trajectory", "solver.mppi", "solver.rollout"):
+          "utils.trajectory", "solver.mppi", "solver.rollout", "models.layers", "models.params",
+          "models.pmc", "models.epmc", "models.sepmc", "compat.tleague_import",
+          "learning.registry", "bin.run_eval", "entry"):
     assert "lifelike_tpu_torch." + m in names, m
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -6,6 +6,11 @@ JAX reference as jnp arrays, to the port through compat.from_jax.
 import numpy as np
 import torch
 
+# The port's CPU tests run many small eager ops, side by side with other test
+# files in xdist workers: one intra-op thread each keeps a worker from
+# spawning (and spin-waiting) a thread per core beside the others.
+torch.set_num_threads(1)
+
 STAND = np.array([-0.028, -0.779, 1.687] * 4)
 CPU = "cpu"
 F64 = torch.float64
