@@ -151,11 +151,43 @@ result line:
      p50 over NET_REPS calls after warm-up, CUDA events) and device
      kernels per forward (torch.profiler): PMCNet at B 1 and B 4096,
      EPMCNet at B 1, SEPMCNet at B 2;
+ 13. the learner (learning/, bin/run_learner; no kernel of its own but K5
+     on the hard-contact plant), at full float32 precision (TF32 off
+     through forward, backward and optimizer): (a) train steps on the card
+     against the CPU at the canonical widths on a fixed rollout made from
+     a numpy seed (T 20 x B 256; SEPMC B 64; the actions sampled from the
+     net, their behaviour neglogps plus noise): PMCNet from the pool
+     checkpoint, EPMCNet with its LLC and prop_rms loaded from it and
+     frozen (burn-in 12), SEPMCNet seeded (burn-in 12); one and two steps,
+     metrics within 1e-5 x max(1, |x|), each leaf's gradients within 1e-4
+     of its max |g|, parameters within 2 x lr x steps + 1e-6 x max(1, |p|),
+     frozen leaves bitwise unchanged; for PMC the env columns holding a
+     row whose z index differs between card and CPU (only where the CPU's
+     argmin gap is below 1e-4) are masked out, and counted; (b)
+     bin/run_learner for the three stages in turn at train_scripts'
+     widths and configs, depth cut to unroll 20 (burn-in 12 + rollout 8)
+     and LEARN_UPDATES updates, each run with every kernel count set to 0
+     first: PMC at 256 envs (and one --pmc_replay update), EPMC on hurdles
+     at 256 envs from the pool checkpoint with params/llc and
+     params/prop_rms frozen, SEPMC at 64 envs from the model the EPMC run
+     pushed to its pool (--update_opponent_freq 1), one EPMC update on
+     the hard-contact plant (K5 launches = env steps x 10 substeps, every
+     other count 0); every loss finite, the frozen leaves bitwise the
+     donor's and every trainable leaf moved (or had an all-zero
+     gradient), every pool file read back strictly by the port's
+     ModelPool; (c) per run: ms per update split into collection and
+     optimisation, env steps/s (CUDA events) and
+     torch.cuda.max_memory_allocated, beside the card's name and power
+     limit;
 then one JSON line listing the six kernels, the nvidia-smi line, and last
 the result line {"ok": true, "device": {...}}. Needs one card; builds the
 kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
 non-zero without a result when no card (or no lifelike_tpu_torch beside
 this file) is present.
+
+  python3 chip_smoke.py --learner
+
+runs phase 13 alone and ends with one JSON line of its rows.
 
   python3 chip_smoke.py --timing [--root DIR] [--only Kn ...] [--group Kn=G ...]
                                 [--loop TASK ...]
@@ -187,8 +219,8 @@ import subprocess
 import sys
 import time
 
-STEPS = 20  # closed-loop control steps of the PMC and EPMC tasks
-CHASE_STEPS = 20  # closed-loop control steps of the SEPMC task
+STEPS = 10  # closed-loop control steps of the PMC and EPMC tasks (depth cut to fit)
+CHASE_STEPS = 10  # closed-loop control steps of the SEPMC task (depth cut to fit)
 POP, HORIZON, SUBSTEPS = 4096, 50, 10  # headline solve shape (bench.py bench_pmc)
 CONTACT_K = 8  # boxes per EPMC solve (solver/mpc_tasks.py CONTACT_K)
 CHASE_POP = 2048  # candidates per robot (bench.py bench_sepmc: pop // 2)
@@ -220,13 +252,24 @@ POOL_MODEL = os.path.join(os.path.dirname(os.path.abspath(__file__)),  # runs/pm
                           "lifelike_tpu_torch/data/pmc_r5/model_0009660.model")
 NET_TOL, VQ_GAP = 1e-5, 1e-4
 NET_B, NET_REPS = 8, 50
-EVAL_STEPS = {"pmc": 50, "epmc": 20, "sepmc": 20}
+EVAL_STEPS = {"pmc": 20, "epmc": 10, "sepmc": 10}  # steps per run_eval episode (depth cut)
+# phase 13: the learner at train_scripts' widths, depth cut: unroll 20 =
+# the reference's burn_in 12 + rollout_length 8, LEARN_UPDATES updates per
+# stage; 256 envs for PMC / EPMC, 64 for SEPMC
+LEARN_T, LEARN_BURN_IN, LEARN_B, LEARN_B_SEPMC, LEARN_UPDATES = 20, 12, 256, 64, 2
+TRAIN_TOL, GRAD_TOL = 1e-5, 1e-4
+# the stage hand-offs: EPMC takes PMC's LLC and prop_rms; SEPMC takes
+# EPMC's, with EPMC's policy tower (pi_*) and z head as its frozen MLC (mlc_*)
+LEARN_HANDOFF = {"epmc": "params/llc,params/prop_rms",
+                 "sepmc": ",".join(["params/llc", "params/prop_rms"] + [
+                     f"params/mlc_{k}=params/pi_{k}" for k in ("prop_embed", "cmd", "fc", "lstm")]
+                     + ["params/z_out=params/z_out"])}
 # K6: the MPPI->iLQR hybrid at bench.py bench_hybrid's width (population
 # pop // 4 = 1024, H 50, n_refine 7: S = 8 scenarios) with run_mpc's default
 # 2 iLQR iterations; its PMC loop runs HYB_STEPS control steps, the EPMC and
 # SEPMC hybrid loops HYB_TASK_STEPS at horizon HYB_TASK_HORIZON, 1 iteration.
 HYB_POP, HYB_REFINE, HYB_ITERS, HYB_STEPS = 1024, 7, 2, 2
-HYB_TASK_HORIZON, HYB_TASK_STEPS = 10, 2
+HYB_TASK_HORIZON, HYB_TASK_STEPS = 5, 2
 RICCATI_N, RICCATI_M, RICCATI_S = 37, 12, HYB_REFINE + 1
 # operations and float32 bytes of one Riccati step of one scenario, printed
 # by tools/kernel_op_counts.py (the Pallas kernel's _backward_step traced at
@@ -1833,6 +1876,314 @@ def time_networks(card):
             f"device kernels / copies per forward")
 
 
+def learn_rollout(kind, net, T, B, seed):
+    """Phase 13a's fixed (T, B) rollout, float32 on the CPU: seeded numpy
+    observations (and start hidden state, episode resets, rewards, ends);
+    the actions sampled from `net` with a seeded generator; the behaviour
+    neglogps of those actions plus N(0, 0.1) noise, so the PPO ratios sit
+    around the clip."""
+    import numpy as np
+    import torch
+
+    from lifelike_tpu_torch.learning import learner, recurrent
+    from lifelike_tpu_torch.models import layers
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    n = lambda *s: f32(rng.standard_normal((T, B) + s))
+    u = lambda hi, *s: f32(hi * rng.uniform(size=(T, B) + s))
+    reward = u(1.0) if kind == "pmc" else f32(rng.choice([-1.0, 0.0, 0.1, 1.0], (T, B)))
+    discount = f32(0.95 * (rng.uniform(size=(T, B)) >= 0.05))
+    noise = 0.1 * n()
+    if kind == "pmc":
+        prop, prop_a, future = n(99), n(36), n(72)
+        with torch.no_grad():
+            out = net(prop, prop_a, future)
+            action = layers.gaussian_sample(g, out.mean, out.logstd)
+            nlp = layers.gaussian_neglogp(out.mean, out.logstd, action)
+        return learner.Rollout(prop=prop, prop_a=prop_a, future=future, action=action,
+                               neglogp=nlp + noise, reward=reward, discount=discount)
+    obs = dict(prop=n(99), prop_a=n(36), percep_2d=u(0.6, 25, 13), percep_1d=u(3.0, 128),
+               percep_front=u(0.6, 25, 13))
+    if kind == "epmc":
+        obs["target"] = n(3)
+    else:
+        obs = {k.replace("percep_", "percept_"): v for k, v in obs.items()}
+        for k, w in (("percept_vec", 5), ("oppo_info", 15), ("oppo_info_cheat", 15),
+                     ("flag_info", 7), ("flag_info_cheat", 7), ("with_flag", 2)):
+            obs[k] = n(w)
+        obs["control_spd"] = 0.5 + u(2.5, 1)
+    mask = f32(rng.uniform(size=(T, B)) < 0.05)
+    hs = 0.5 * n(net.cfg.hs_len)[0]
+    steps = []
+    with torch.no_grad():
+        for t in range(T):
+            out = net({k: v[t] for k, v in obs.items()}, hs, mask[t], generator=g)
+            a_llc = layers.gaussian_sample(g, out.mean, out.logstd)
+            nlp = (layers.categorical_neglogp(out.z_logits, out.z_idx)
+                   + layers.gaussian_neglogp(out.mean, out.logstd, a_llc))
+            if kind == "sepmc":
+                nlp = nlp + layers.gaussian_neglogp(out.hlc_mean, out.hlc_logstd, out.hlc_angle)
+            steps.append((out.z_idx, a_llc, out.hlc_angle if kind == "sepmc"
+                          else torch.zeros(B, 1), nlp, hs))
+            hs = out.hs
+    a_z, a_llc, a_hlc, nlp, hss = (torch.stack(x) for x in zip(*steps))
+    return recurrent.RecurrentRollout(obs=obs, a_z=a_z, a_llc=a_llc, a_hlc=a_hlc,
+                                      neglogp=nlp + noise, reward=reward, discount=discount,
+                                      mask=mask, hs=hss)
+
+
+def vq_flips(cpu, card, roll):
+    """(T, B) rows whose PMC z index differs between the card's forward and
+    the CPU's on the rollout; exits where such a row's CPU argmin gap is not
+    below VQ_GAP."""
+    import torch
+
+    with torch.no_grad():
+        z_cpu = cpu(roll.prop, roll.prop_a, roll.future).z_idx
+        z_card = card(*(x.cuda() for x in (roll.prop, roll.prop_a, roll.future))).z_idx.cpu()
+    flips = z_cpu != z_card
+    if bool(flips.any()):
+        gap = vq_gap(cpu, roll.prop, roll.prop_a, roll.future)
+        if bool((gap[flips] >= VQ_GAP).any()):
+            raise SystemExit(f"PMCNet train step: z index differs where the CPU's argmin gap is "
+                             f"{float(gap[flips].max()):.3e} >= {VQ_GAP:g}")
+    return flips
+
+
+def check_train_steps():
+    """Phase 13a: one and two train steps on the card against the CPU at the
+    canonical widths, float32, each side at full float32 precision (TF32 off
+    through the backward): PMCNet from the pool checkpoint, EPMCNet with its
+    LLC and prop_rms loaded from it and frozen, SEPMCNet seeded."""
+    import copy
+
+    import torch
+
+    from lifelike_tpu_torch.learning import freeze, learner, recurrent, registry
+    from lifelike_tpu_torch.learning import replay as rp
+    from lifelike_tpu_torch.models import epmc, pmc, sepmc
+
+    pool_tree = registry.ModelPool().load_file("pool", POOL_MODEL)
+    handoff = [("params", "llc"), ("params", "prop_rms")]
+    pmc_net = pmc.load_params(pmc.PMCNet(), pool_tree)
+    epmc_net = freeze.load_subtree(epmc.EPMCNet(generator=torch.Generator().manual_seed(2)),
+                                   pool_tree, handoff)
+    sepmc_net = sepmc.SEPMCNet(generator=torch.Generator().manual_seed(3))
+    cases = [("PMCNet", pmc_net, (), learner.train_step, {}, LEARN_B),
+             ("EPMCNet", epmc_net, handoff, recurrent.epmc_train_step, {"burn_in": LEARN_BURN_IN},
+              LEARN_B),
+             ("SEPMCNet", sepmc_net, (), recurrent.sepmc_train_step,
+              {"burn_in": LEARN_BURN_IN}, LEARN_B_SEPMC)]
+    cfg = learner.PPOConfig()
+    for i, (name, cpu, frozen, step, kw, B) in enumerate(cases):
+        kind = name[:-3].lower()
+        roll = learn_rollout(kind, cpu, LEARN_T, B, seed=10 + i)
+        card = copy.deepcopy(cpu).cuda()
+        opt_cpu = learner.make_optimizer(cfg, cpu, frozen)
+        opt_card = learner.make_optimizer(cfg, card, frozen)
+        frozen0 = {k: p.detach().clone() for k, p in cpu.named_parameters()
+                   if k not in opt_cpu.names}
+        err = {"metrics": 0.0, "grads": 0.0, "params": 0.0}
+        dropped, ms = [], []
+        for s in (1, 2):
+            r = roll
+            if kind == "pmc":  # mask out the env columns with a VQ near-tie flip
+                keep = ~vq_flips(cpu, card, roll).any(0)
+                dropped.append(int((~keep).sum()))
+                r = rp.tree_map(lambda x: x[:, keep], roll)
+            r_card = rp.tree_map(lambda x: x.cuda(), r)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            m_card = step(card, opt_card, cfg, r_card, **kw)
+            e1.record()
+            m_cpu = step(cpu, opt_cpu, cfg, r, **kw)
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            for k, v in m_cpu.items():
+                e = abs(float(m_card[k]) - float(v)) / max(1.0, abs(float(v)))
+                if not e <= TRAIN_TOL:
+                    raise SystemExit(f"{name} train step {s}: {k} card {float(m_card[k])!r} vs "
+                                     f"CPU {float(v)!r} > {TRAIN_TOL:g} x max(1, |x|)")
+                err["metrics"] = max(err["metrics"], e)
+            for k, gc, gd in zip(opt_cpu.names, opt_cpu.views(opt_cpu.flat_grad()),
+                                 opt_card.views(opt_card.flat_grad())):
+                scale = float(gc.abs().max())
+                e = float((gd.cpu() - gc).abs().max())
+                if not e <= GRAD_TOL * scale:
+                    raise SystemExit(f"{name} train step {s}: gradient of {k} off by {e:.3e} > "
+                                     f"{GRAD_TOL:g} x its max |g| {scale:.3e}")
+                err["grads"] = max(err["grads"], e / scale if scale else 0.0)
+            for (k, pc), (_, pd) in zip(cpu.named_parameters(), card.named_parameters()):
+                d = (pd.detach().cpu() - pc.detach()).abs()
+                limit = 2 * cfg.learning_rate * s + 1e-6 * pc.detach().abs().clamp_min(1.0)
+                if bool((d > limit).any()):
+                    raise SystemExit(f"{name} train step {s}: parameter {k} off by "
+                                     f"{float(d.max()):.3e} > 2 x lr x steps + 1e-6 x max(1, |p|)")
+                err["params"] = max(err["params"], float((d / limit).max()))
+        for k, p0 in frozen0.items():
+            if not (torch.equal(dict(cpu.named_parameters())[k].detach(), p0)
+                    and torch.equal(dict(card.named_parameters())[k].detach().cpu(), p0)):
+                raise SystemExit(f"{name}: frozen parameter {k} changed")
+        burn = f", burn-in {LEARN_BURN_IN}" if kw else ""
+        say(f"check train step {name} (T {LEARN_T} x B {B}{burn}, {len(opt_cpu.names)} trainable "
+            f"/ {len(frozen0)} frozen tensors): card vs CPU over 2 "
+            f"steps | metrics max err / max(1, |x|) {err['metrics']:.3e} (gate {TRAIN_TOL:g}), "
+            f"gradients max err / leaf max |g| {err['grads']:.3e} (gate {GRAD_TOL:g}), parameters "
+            f"max err / (2 lr steps + 1e-6 max(1, |p|)) {err['params']:.3e}"
+            + (f" | env columns masked for a VQ near-tie flip: {dropped}" if kind == "pmc" else "")
+            + f" | card step ms {', '.join(f'{x:.1f}' for x in ms)} (CUDA events)")
+
+
+def _learner_flags(d):
+    """run_learner's flags for phase 13b's runs at train_scripts' widths and
+    configs (unroll_length LEARN_T = burn_in 12 + rollout_length 8)."""
+    lrn = "'learning_rate': 1e-5, 'gamma': 0.95, 'lam': 0.95, 'unroll_length': %d" % LEARN_T
+    push = ("'disturb_force_config': {'start_time': 0.5, 'interval_time': 1.0, "
+            "'duration_time': 0.2, 'horizontal_force': [0, 50], 'vertical_force': [0, 10]}")
+    pmc_flags = [
+        "--env_config={'data_path': 'synthetic', 'control_freq': 50.0, 'kp': 50.0, 'kd': 0.5, "
+        "'max_tau': 18, 'reward_weights': {'joint_pos': 0.3, 'joint_vel': 0.05, "
+        "'end_effector': 0.1, 'root_pose': 0.5, 'root_vel': 0.05}}",
+        "--policy_config={'z_len': 32, 'num_embeddings': 256, 'bot_neck_z_embed_size': 32, "
+        "'bot_neck_prop_embed_size': 64}",
+        f"--num_envs={LEARN_B}"]
+    pmc_lrn = (lrn + ", 'vf_coef': 1.0, 'ent_coef': 0.0, 'q_latent_coef': 1.0, "
+               "'e_latent_coef': 0.25, 'rms_loss_coef': 1.0, 'max_grad_norm': 0.5")
+
+    def epmc_flags(hard):
+        return ["--env_config={'control_freq': 50.0, 'kp': 50.0, 'kd': 1.0, 'max_tau': 16, "
+                f"'hard_contact': {hard}, 'env_randomize_config': {{'element_id': 1, "
+                "'friction_range': [0.4, 3.0], 'target_spd_range': [0.5, 3.0], "
+                f"'cmd_vary_freq_range': [25, 200], {push}}}}}",
+                f"--learner_config={{{lrn}}}", f"--num_envs={LEARN_B}",
+                f"--init_model={POOL_MODEL}", f"--init_model_subtree={LEARN_HANDOFF['epmc']}"]
+
+    return {
+        "pmc": pmc_flags + [f"--learner_config={{{pmc_lrn}}}", f"--model_pool_dir={d}/pool_pmc"],
+        "pmc replay": pmc_flags + [
+            "--pmc_replay", f"--learner_config={{{pmc_lrn}, 'rollout_length': 10, "
+            "'replay_size': 1024, 'batch_windows': 256}", "--total_updates=1"],
+        "epmc": epmc_flags(False) + [f"--model_pool_dir={d}/pool_epmc"],
+        "sepmc": [
+            "--env_config={'control_freq': 50.0, 'kp': 50.0, 'kd': 1.0, 'max_tau': 16, "
+            "'max_steps': 1000, 'env_randomize_config': {'friction_range': [0.4, 3.0], "
+            f"'control_spd_range': [1.0, 3.0], {push}}}}}",
+            f"--learner_config={{{lrn}}}", f"--num_envs={LEARN_B_SEPMC}",
+            f"--init_model={d}/pool_epmc/model_{LEARN_UPDATES - 1:07d}.model",
+            f"--init_model_subtree={LEARN_HANDOFF['sepmc']}", "--update_opponent_freq=1",
+            f"--model_pool_dir={d}/pool_sepmc", f"--checkpoint_dir={d}/league_sepmc"],
+        "epmc hard-contact": epmc_flags(True) + ["--total_updates=1"],
+    }
+
+
+def check_handoff(name, out, flags):
+    """Frozen parameters bitwise the donor's; every trainable one moved from
+    run_learner's initial value unless its last gradient is all zero.
+    Returns (frozen, moved, zero-gradient) tensor counts."""
+    import torch
+
+    from lifelike_tpu_torch.bin import run_learner
+    from lifelike_tpu_torch.learning import freeze, registry
+    from lifelike_tpu_torch.models import epmc, sepmc
+
+    net, opt = out["net"], out["optimizer"]
+    arg = dict(f[2:].split("=", 1) for f in flags if f.startswith("--init_"))
+    donor = registry.ModelPool().load_file("donor", arg["init_model"])
+    init = (epmc.EPMCNet if isinstance(net, epmc.EPMCNet) else sepmc.SEPMCNet)(
+        generator=torch.Generator().manual_seed(0))
+    freeze.load_subtree(init, donor, run_learner.subtree_paths(arg["init_model_subtree"]))
+    start, trainable = dict(init.named_parameters()), set(opt.names)
+    counts = [0, 0, 0]
+    for k, p in net.named_parameters():
+        p0 = start[k].to(p.device)
+        if k not in trainable:
+            if not torch.equal(p.detach(), p0):
+                raise SystemExit(f"run_learner {name}: frozen parameter {k} changed")
+            counts[0] += 1
+        elif not torch.equal(p.detach(), p0):
+            counts[1] += 1
+        elif p.grad is None or not bool(p.grad.any()):
+            counts[2] += 1
+        else:
+            raise SystemExit(f"run_learner {name}: trainable parameter {k} did not move")
+    return counts
+
+
+def run_learners(launches_of):
+    """Phase 13b: bin/run_learner for the three stages in turn on the card,
+    each run with every kernel count set to 0 first. Returns the rows of
+    phase 13c."""
+    import tempfile
+
+    import torch
+
+    from lifelike_tpu_torch.bin import run_learner
+    from lifelike_tpu_torch.learning import registry
+    from lifelike_tpu_torch.models import epmc, params, pmc, sepmc
+
+    rows = {}
+    loaders = {"pmc": pmc.PMCNet, "epmc": epmc.EPMCNet, "sepmc": sepmc.SEPMCNet}
+    with tempfile.TemporaryDirectory() as d:
+        for name, flags in _learner_flags(d).items():
+            updates = next((int(f.split("=")[1]) for f in flags
+                            if f.startswith("--total_updates")), LEARN_UPDATES)
+            argv = [f"--task={name.split()[0]}", "--device=cuda", "--seed=0",
+                    f"--total_updates={updates}", "--log_interval=1", "--pub_interval=1"] + [
+                f for f in flags if not f.startswith("--total_updates")]
+            for k in launches_of:
+                k.launches = 0
+            out = run_learner.main(argv, log=lambda m, name=name: say(f"run_learner {name}: " + m))
+            launches = [k.launches for k in launches_of]
+            want = [0] * len(launches_of)
+            if name == "epmc hard-contact":
+                want[4] = LEARN_T * updates * IMPULSE_SUBSTEPS  # K5: env steps x substeps
+            if launches != want:
+                raise SystemExit(f"run_learner {name}: kernel launches (K1-K6) {launches}, "
+                                 f"expected {want}")
+            ups = out["updates"]
+            if len(ups) != updates or not all(math.isfinite(v) for u in ups
+                                              for v in u["metrics"].values()):
+                raise SystemExit(f"run_learner {name}: missing or non-finite losses {ups}")
+            extra = ""
+            if name in ("epmc", "sepmc", "epmc hard-contact"):
+                f, m, z = check_handoff(name, out, flags)
+                extra = (f" | {f} frozen tensors bitwise the donor's, {m} trainable moved, {z} "
+                         f"with an all-zero gradient")
+            pool_dir = next((f.split("=", 1)[1] for f in flags
+                             if f.startswith("--model_pool_dir")), None)
+            if pool_dir:
+                pool = registry.ModelPool(pool_dir)
+                files = sorted(os.listdir(pool_dir))
+                for fn in files:  # strict: every leaf used, every parameter filled
+                    params.load_flax_tree(loaders[name.split()[0]](), pool.load(fn[:-6]))
+                extra += f" | pool files {files} read back by the port's ModelPool"
+            rows[name] = dict(
+                updates=updates, launches=launches, losses=[u["metrics"]["loss"] for u in ups],
+                collect_ms=[u["collect_ms"] for u in ups],
+                optimize_ms=[u["optimize_ms"] for u in ups],
+                env_steps_per_s=[u["env_steps_per_s"] for u in ups],
+                max_memory_allocated=out["max_memory_allocated"])
+            say(f"run_learner {name} on the card: {updates} updates of {out['cfg'].unroll_length} "
+                f"env steps, losses {rows[name]['losses']}{extra} | kernel launches (K1-K6) "
+                f"{launches}")
+    return rows
+
+
+def report_learners(rows, smi):
+    """Phase 13c: ms per update split into collection and optimisation, env
+    steps/s and the peak device memory of each run_learner run."""
+    for name, r in rows.items():
+        per = "; ".join(f"update {i}: collection {c:.1f} ms, optimisation {o:.1f} ms, "
+                        f"{s:.1f} env steps/s" for i, (c, o, s) in enumerate(
+                            zip(r["collect_ms"], r["optimize_ms"], r["env_steps_per_s"])))
+        mem = r["max_memory_allocated"]
+        say(f"learner {name} [{smi}]: {per} (CUDA events; update 0 includes warm-up) | "
+            f"torch.cuda.max_memory_allocated "
+            + ("not measured" if mem is None else f"{mem / 2**20:.1f} MiB"))
+
+
 def bound(ops, nbytes):
     """(bound ms, what bounds it, ops ms, bytes ms) on this card's peaks."""
     ops_ms, bytes_ms = 1e3 * ops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_HBM_BYTES
@@ -2149,6 +2500,13 @@ def main():
     time_networks(card)
     say(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
+    # 13. the learner: train steps on the card vs the CPU, then bin/run_learner
+    # for the three stages in turn, each with every kernel count set to 0 first
+    t13 = time.perf_counter()
+    check_train_steps()
+    report_learners(run_learners(fns), smi)
+    say(f"phase 13: {time.perf_counter() - t13:.1f} s")
+
     say(json.dumps({"kernels": [
         dict(name=KERNELS[k]["name"], route="cuda", source=KERNELS[k]["source"],
              replaces=KERNELS[k]["replaces"], launches=launches[k], max_abs_err=err[k],
@@ -2270,7 +2628,35 @@ def timing_mode(argv):
     return 0
 
 
+def learner_mode():
+    """The --learner mode: phase 13 alone, then one JSON line of its rows."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs one NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from lifelike_tpu_torch.ops import pgs_cuda, rollout_cuda
+    from lifelike_tpu_torch.ops import traversal_cuda as tc
+    from lifelike_tpu_torch.solver import riccati_cuda
+
+    smi = nvidia_smi()
+    say(f"learner: {torch.cuda.get_device_name(0)} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | nvidia-smi: {smi}")
+    fns = (rollout_cuda.rollout_tracking_fused, tc.rollout_traversal_fused,
+           tc.rollout_plan_fused, tc.rollout_chase_fused, pgs_cuda.pgs_sweep,
+           riccati_cuda.riccati_sweep)
+    t13 = time.perf_counter()
+    check_train_steps()
+    rows = run_learners(fns)
+    report_learners(rows, smi)
+    say(json.dumps({"smi": smi, "phase13_s": time.perf_counter() - t13, "rows": rows}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--timing"]:
         sys.exit(timing_mode(sys.argv[2:]))
+    if sys.argv[1:2] == ["--learner"]:
+        sys.exit(learner_mode())
     sys.exit(main())

@@ -7,18 +7,26 @@ takes one of those structures as the JAX package holds it — any object with
 the same field names whose leaves are numpy arrays (or array-likes such as
 a jax.Array converted by np.asarray) — and returns the port's structure on a
 given device and dtype. The policy networks' weights come over as their
-Flax parameter trees (`pmc_params`, `epmc_params`, `sepmc_params`). Nothing
-here imports JAX or the JAX package.
+Flax parameter trees (`pmc_params`, `epmc_params`, `sepmc_params`), an
+optax Adam state as the port's optimizer state (`adam_state`), and the JAX
+package's training checkpoints are read without JAX or optax
+(`read_train_checkpoint`). Nothing here imports JAX or the JAX package.
 """
+import pickle
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from lifelike_tpu_torch import _device
-from lifelike_tpu_torch.envs.chase_tag import ChaseTagConfig, ChaseTagState
-from lifelike_tpu_torch.envs.playground import PlaygroundState
+from lifelike_tpu_torch.envs.chase_tag import ChaseTagConfig, ChaseTagObs, ChaseTagState
+from lifelike_tpu_torch.envs.playground import PlaygroundObs, PlaygroundState
 from lifelike_tpu_torch.envs.primitive import PrimitiveEnvState
 from lifelike_tpu_torch.envs.randomizer import PushConfig, PushState
+from lifelike_tpu_torch.learning import learner, recurrent
+from lifelike_tpu_torch.learning import replay as rp
 from lifelike_tpu_torch.models import epmc, pmc, sepmc
+from lifelike_tpu_torch.models import params as P
 from lifelike_tpu_torch.motion.motion_lib import MotionClips
 from lifelike_tpu_torch.parallel.scenario_sweep import ScenarioBatch
 from lifelike_tpu_torch.physics.batched import TLConstants, TLState
@@ -210,3 +218,129 @@ def sepmc_params(tree, cfg=None, device="cuda", dtype=torch.float32) -> sepmc.SE
     dev = _device.resolve_device(device)
     net = sepmc.SEPMCNet(cfg or sepmc.SEPMCConfig()).to(device=dev, dtype=dtype)
     return sepmc.load_params(net, tree)
+
+
+# ---------------------------------------------------------------------------
+# Optimizer state and training checkpoints
+# ---------------------------------------------------------------------------
+
+
+class EmptyState(NamedTuple):
+    """Stand-in for optax's EmptyState in a checkpoint read by
+    read_train_checkpoint."""
+
+
+class ScaleByAdamState(NamedTuple):
+    count: np.ndarray
+    mu: dict
+    nu: dict
+
+
+class MaskedState(NamedTuple):
+    inner_state: object
+
+
+class MaskedNode(NamedTuple):
+    """A frozen leaf's place in a masked (multi_transform) optax state."""
+
+
+class PartitionState(NamedTuple):
+    inner_states: dict
+
+
+def _find_adam(state):
+    if hasattr(state, "_fields") and {"count", "mu", "nu"} <= set(state._fields):
+        return state
+    children = (state.values() if isinstance(state, dict)
+                else state if isinstance(state, (tuple, list)) else ())
+    for c in children:
+        found = _find_adam(c)
+        if found is not None:
+            return found
+    return None
+
+
+def adam_state(opt_state, optimizer: learner.ClipAdam):
+    """Load the Adam moments of an optax state — optax.chain(clip, adam)'s
+    `(EmptyState, (ScaleByAdamState, EmptyState))`, or the same under a
+    multi_transform's masked partition — into `optimizer` (a
+    learner.ClipAdam over a net's trainable parameters): count -> step, mu
+    -> exp_avg, nu -> exp_avg_sq, each parameter's moments read at its Flax
+    path (kernels transposed as the weights are). Returns the optimizer."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState in the optimizer state")
+
+    def flat(tree):
+        parts = []
+        for name, p in zip(optimizer.names, optimizer.params):
+            path = P.flax_path(name, p)
+            node = tree
+            for k in path:
+                node = node[k]
+            a = P.to_torch_layout(path, node)
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{'/'.join(path)}: moment {tuple(a.shape)} vs parameter "
+                                 f"{tuple(p.shape)}")
+            parts.append(a.reshape(-1))
+        return torch.cat(parts).to(optimizer.exp_avg)
+
+    optimizer.load_state_dict({"names": optimizer.names, "step": int(np.asarray(adam.count)),
+                               "exp_avg": flat(adam.mu), "exp_avg_sq": flat(adam.nu)})
+    return optimizer
+
+
+# The classes a JAX TrainCheckpoint pickle may name, and what each is read
+# as: numpy's array reconstruction, optax's state records (stand-ins above)
+# and the JAX package's NamedTuples of env state, rollouts and replay (the
+# port's classes of the same fields).
+_CHECKPOINT_CLASSES = {
+    **{(m, n): None for m in ("numpy", "numpy.core.multiarray", "numpy._core.multiarray")
+       for n in ("_reconstruct", "ndarray", "dtype", "scalar")},
+    ("optax._src.base", "EmptyState"): EmptyState,
+    ("optax._src.transform", "ScaleByAdamState"): ScaleByAdamState,
+    ("optax.transforms._masking", "MaskedState"): MaskedState,
+    ("optax.transforms._masking", "MaskedNode"): MaskedNode,
+    ("optax.transforms._combining", "PartitionState"): PartitionState,
+    ("lifelike_tpu.envs.primitive", "PrimitiveEnvState"): PrimitiveEnvState,
+    ("lifelike_tpu.physics.dynamics", "RobotState"): RobotState,
+    ("lifelike_tpu.learning.learner", "Rollout"): learner.Rollout,
+    ("lifelike_tpu.learning.replay", "Replay"): rp.Replay,
+    ("lifelike_tpu.learning.recurrent", "RecurrentRollout"): recurrent.RecurrentRollout,
+    ("lifelike_tpu.envs.playground", "PlaygroundState"): PlaygroundState,
+    ("lifelike_tpu.envs.playground", "PlaygroundObs"): PlaygroundObs,
+    ("lifelike_tpu.envs.chase_tag", "ChaseTagState"): ChaseTagState,
+    ("lifelike_tpu.envs.chase_tag", "ChaseTagObs"): ChaseTagObs,
+    ("lifelike_tpu.envs.randomizer", "PushState"): PushState,
+    ("lifelike_tpu.scene.boxes", "BoxScene"): BoxScene,
+}
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    """Resolves only the allowlisted classes; refuses every other global."""
+
+    def find_class(self, module, name):
+        if (module, name) not in _CHECKPOINT_CLASSES:
+            raise pickle.UnpicklingError(
+                f"blocked global {module}.{name} in a JAX TrainCheckpoint (allowlist: numpy "
+                "arrays, optax states, the JAX package's state NamedTuples)")
+        cls = _CHECKPOINT_CLASSES[(module, name)]
+        return cls if cls is not None else super().find_class(module, name)
+
+
+def read_train_checkpoint(path):
+    """The JAX package's TrainCheckpoint file (`{"step": int, "trees":
+    {...}}`, numpy leaves) without JAX or optax: optax's states come back as
+    this module's stand-ins (EmptyState, ScaleByAdamState, ...), the JAX
+    package's NamedTuples as the port's classes of the same fields, arrays
+    as numpy. Any other global in the pickle is refused."""
+    with open(path, "rb") as f:
+        return _CheckpointUnpickler(f).load()
+
+
+def replay_buffer(rep, device="cuda", dtype=None) -> rp.Replay:
+    """learning.replay.Replay (numpy data tree, cursor, filled) -> the port's
+    Replay with the buffers on `device` (floats in `dtype` when given)."""
+    dev = _device.resolve_device(device)
+    return rp.Replay(data=rp.tree_map(lambda x: _tensor(x, dev, dtype), rep.data),
+                     cursor=int(np.asarray(rep.cursor)), filled=int(np.asarray(rep.filled)))

@@ -31,7 +31,12 @@ def full_fp32():
 
     cuDNN convolutions may use TF32 by default; the VQ argmin and a sampled
     codebook index turn TF32's rounding into different actions, so the
-    networks' forward passes run inside this context. No effect on the CPU.
+    networks' forward passes run inside this context. A backward pass reads
+    the setting when it runs, after the forward's context has exited, so the
+    learner's train steps run wholly inside it — forward, backward and the
+    optimizer step — with the context as their decorator
+    (learning/learner.train_step, learning/recurrent.*_train_step). No
+    effect on the CPU.
     """
     conv, matmul = torch.backends.cudnn.conv, torch.backends.cuda.matmul
     saved = (conv.fp32_precision, matmul.fp32_precision)

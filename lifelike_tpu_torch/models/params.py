@@ -37,12 +37,12 @@ def _is_kernel(key, state):
     return key.endswith(".weight") and state[key].ndim in _TO_FLAX
 
 
-def load_flax_tree(module, tree):
+def load_flax_tree(module, tree, partial=False):
     """Copy a Flax-layout tree (numpy arrays or array-likes, with or without
     the top "params" scope) into `module`'s parameters, in place, cast to
     each parameter's dtype and device. Strict: every leaf of the tree is used
-    once, every parameter of the module is filled, and every shape matches.
-    Returns the module."""
+    once, every shape matches and, unless `partial` (a subtree hand-off),
+    every parameter of the module is filled. Returns the module."""
     params = tree["params"] if "params" in tree else tree
     state = dict(module.named_parameters())
     filled = set()
@@ -54,9 +54,7 @@ def load_flax_tree(module, tree):
                                f"{type(module).__name__}")
             if key in filled:
                 raise KeyError(f"{'/'.join(path)}: parameter {key} given twice")
-            a = torch.as_tensor(np.array(leaf))
-            if path[-1] == "kernel" and a.ndim in _TO_TORCH:
-                a = a.permute(_TO_TORCH[a.ndim])
+            a = to_torch_layout(path, leaf)
             p = state[key]
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"shape mismatch at {'/'.join(path)}: parameter "
@@ -64,9 +62,27 @@ def load_flax_tree(module, tree):
             p.copy_(a.to(p.dtype))
             filled.add(key)
     missing = sorted(set(state) - filled)
-    if missing:
+    if missing and not partial:
         raise KeyError(f"{type(module).__name__}: parameters not in the tree: {missing}")
     return module
+
+
+def flax_path(key, param):
+    """The Flax path (from the top "params" scope) of the module parameter
+    `key` (a state_dict key) holding `param`."""
+    parts = key.split(".")
+    if parts[-1] == "weight" and param.ndim in _TO_FLAX:
+        parts[-1] = "kernel"
+    return ("params",) + tuple(parts)
+
+
+def to_torch_layout(path, leaf):
+    """A Flax-layout leaf at `path` as a tensor in the layout of the module
+    parameter it maps onto (kernels permuted)."""
+    a = torch.as_tensor(np.array(leaf))
+    if path[-1] == "kernel" and a.ndim in _TO_TORCH:
+        a = a.permute(_TO_TORCH[a.ndim])
+    return a
 
 
 def flax_tree(module):

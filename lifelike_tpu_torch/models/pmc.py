@@ -16,6 +16,7 @@ frozen LLC by path. Parameters are float32 unless the module is cast
 """
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -192,3 +193,37 @@ def load_params(net: PMCNet, tree):
     if not isinstance(net, PMCNet):
         raise TypeError(f"expected a PMCNet, got {type(net).__name__}")
     return P.load_flax_tree(net, tree)
+
+
+def restart_dead_codes(net: PMCNet, usage, rng, min_frac=1.0 / 1024.0, jitter=0.03):
+    """Host-side VQ dead-code restart (codebook-collapse counter-measure).
+
+    Port of lifelike_tpu.models.pmc.restart_dead_codes: every code whose
+    recent usage fraction is below `min_frac` is set to a usage-weighted
+    random LIVE code plus small jitter, so the next nearest-neighbour
+    assignment splits that live code's cluster. Host numpy on the codebook's
+    values and `rng` (a numpy Generator), as the JAX package computes it, so
+    the same usage and generator give the same codebook; the result is
+    written into `net.llc.embedding` in place (no gradient; the optimizer's
+    moments are left alone). usage: (K,) recent selection counts (the
+    learner's "code_counts" EMA). Returns the number of codes restarted.
+    """
+    emb = net.llc.embedding
+    cb = emb.detach().cpu().numpy()  # (z_len, K)
+    usage = np.asarray(usage, np.float64)
+    total = usage.sum()
+    if total <= 0:
+        return 0
+    dead = usage < min_frac * total
+    n = int(dead.sum())
+    if n == 0 or n == cb.shape[1]:
+        return 0
+    live_p = np.where(dead, 0.0, usage)
+    live_p = live_p / live_p.sum()
+    donors = rng.choice(cb.shape[1], size=n, p=live_p)
+    scale = cb[:, ~dead].std() + 1e-6
+    cb2 = cb.copy()
+    cb2[:, dead] = cb[:, donors] + jitter * scale * rng.standard_normal((cb.shape[0], n))
+    with torch.no_grad():
+        emb.copy_(torch.as_tensor(cb2))
+    return n

@@ -150,7 +150,7 @@ if not torch.cuda.is_available():
         rc = smoke.main()
     assert rc != 0 and '"ok": true' not in out.getvalue(), (rc, out.getvalue())
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "absl", "flax", "lifelike_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "absl", "flax", "optax", "lifelike_tpu"))
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
@@ -160,7 +160,8 @@ for m in ("envs.chase_tag", "scene.arena_gen", "scene.arena_fixed", "costs.chase
           "solver.hybrid", "parallel.scenario_sweep", "_native", "utils.obstacle",
           "utils.trajectory", "solver.mppi", "solver.rollout", "models.layers", "models.params",
           "models.pmc", "models.epmc", "models.sepmc", "compat.tleague_import",
-          "learning.registry", "bin.run_eval", "entry"):
+          "learning.registry", "bin.run_eval", "entry", "learning.ppo", "learning.replay",
+          "learning.learner", "learning.recurrent", "learning.freeze", "bin.run_learner"):
     assert "lifelike_tpu_torch." + m in names, m
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -186,7 +187,7 @@ def _check_chip_smoke_fails_alone(tmp_path):
 
 def test_entry_point_contract(tmp_path):
     """run_mpc (with --dump) and profile_mpc (both tasks) on the CPU; no
-    JAX / absl / lifelike_tpu in the port's imports; chip_smoke.py alone in
+    JAX / absl / flax / optax / lifelike_tpu in the port's imports; chip_smoke.py alone in
     a directory fails; and, where no card is present, run_mpc without
     --device=cpu and chip_smoke.py in the repo fail."""
     _check_run_mpc_cpu_reports_finite_rewards(tmp_path)
