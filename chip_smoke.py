@@ -108,7 +108,8 @@ result line:
      (CUDA events, p50 and max) under bench.py's row names
      sepmc_sweep_latency_s16_pop{256,1024}_H50, K3 / K4 launches (2 / 2 per
      round, every other kernel 0) and one profiled round's device-busy
-     share (torch.profiler);
+     share (torch.profiler; not measured where no session records the
+     round's K3 / K4 launches whole);
  10f. the C++ clip parser (lifelike_tpu_torch/_native) built with g++ on
      this machine; load_clips reads a synthetic clip through it, frames
      equal to the json module's;
@@ -119,14 +120,16 @@ result line:
      setting (mass_freeze 1; the chase kernels at substeps 20), K1-K4 at
      both settings beside their chain floor (the dependency depth of a
      control step x H x 4 cycles at the card's maximum SM clock); K5 (device
-     time from torch.profiler, and the wrapper call) at bench.py
-     bench_impulse's shape (B 256 standing robots, 60 rows, 10 iterations)
-     and for one robot on the 129-row hurdle system, beside its chain floor
-     (the dependency depth of a sweep x iterations x 4 cycles at the card's
-     maximum SM clock), the kernels one wrapper call runs on the plant's
-     tensors (only K5: a copy kernel fails the run), and the whole
-     hard-contact control step at bench_impulse's shape; K6 (device time
-     from torch.profiler, the wrapper call, the plain sweep, the bound, the
+     time from torch.profiler, or, where it records no launch, from CUDA
+     events around calls queued behind a spin kernel; and the wrapper call)
+     at bench.py bench_impulse's shape (B 256 standing robots, 60 rows, 10
+     iterations) and for one robot on the 129-row hurdle system, beside its
+     chain floor (the dependency depth of a sweep x iterations x 4 cycles at
+     the card's maximum SM clock), what one wrapper call on the plant's
+     tensors does (one launch, two allocations for its outputs, and where
+     the profiler records them no kernel but K5: a copy fails the run), and
+     the whole hard-contact control step at bench_impulse's shape; K6
+     (device time as K5's, the wrapper call, the plain sweep, the bound, the
      chain floor: the depth of a step x H x 4 cycles) at the hybrid's S 8 /
      H 50 in float32 and float64 and at S 1; where one hybrid PMC solve's
      time goes (MPPI stage, seed rollout, linearize, sweeps, line search);
@@ -179,6 +182,28 @@ result line:
      optimisation, env steps/s (CUDA events) and
      torch.cuda.max_memory_allocated, beside the card's name and power
      limit;
+ 14. the task evaluation (tools/make_eval.py; no kernel of its own: K2 under
+     the gait bank, K3 / K4 under the gait chase solver) at make_eval's
+     widths (population 1024, H 12, sigma 0.12), float32: (a) the prior
+     bank of elements 1-3 (walk, jump and the synthesized / distilled
+     skill clips; priors with their own TraversalWeights, speed scales and
+     gait weights): K2 against its plain version on one solve's
+     candidates of each prior at its own inputs, rtol=atol=2e-4, over the
+     candidates whose plain cost stays within that of the plain version
+     in float64 (contact chaos: the others are counted); then, each run
+     with every kernel count set to 0 first, (b) eval_traversal on each
+     element, 1 seed, EVAL_STEPS_TRAV control steps: K2 launches = steps
+     x 2 priors x 2 MPPI iterations and no other kernel, finite prior
+     costs; solve ms p50 / max (CUDA events), plant ms, the prior
+     executed at each step, progress and outcome; (c) eval_chase against
+     a standing escapee and eval_chase_game, EVAL_STEPS_CHASE steps each:
+     K3 = K4 = 2 per step; (d) eval_checkpoints: bin/run_eval on the card
+     in a subprocess with the repo's PMC pool checkpoint, one episode of
+     EVAL_STEPS_CKPT steps, rc 0 and a finite reward; (e) distill_prior:
+     a seeded EPMC flat list rolled EVAL_STEPS_DISTILL steps on the card,
+     a window mined, resampled to 120 Hz, written as a clip and read back
+     by motion_lib.load_clips; (f) utils.profiling.detect_chip names the
+     card (the bounds of phase 11 read the same table's peaks);
 then one JSON line listing the six kernels, the nvidia-smi line, and last
 the result line {"ok": true, "device": {...}}. Needs one card; builds the
 kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
@@ -187,7 +212,11 @@ this file) is present.
 
   python3 chip_smoke.py --learner
 
-runs phase 13 alone and ends with one JSON line of its rows.
+runs phase 13 alone and ends with one JSON line of its rows;
+
+  python3 chip_smoke.py --eval
+
+runs phase 14 alone and ends with one JSON line of its rows.
 
   python3 chip_smoke.py --timing [--root DIR] [--only Kn ...] [--group Kn=G ...]
                                 [--loop TASK ...]
@@ -260,6 +289,12 @@ LEARN_T, LEARN_BURN_IN, LEARN_B, LEARN_B_SEPMC, LEARN_UPDATES = 20, 12, 256, 64,
 TRAIN_TOL, GRAD_TOL = 1e-5, 1e-4
 # the stage hand-offs: EPMC takes PMC's LLC and prop_rms; SEPMC takes
 # EPMC's, with EPMC's policy tower (pi_*) and z head as its frozen MLC (mlc_*)
+# phase 14: make_eval's task evaluation at its widths (population 1024, H 12),
+# depth cut: 1 seed per element, EVAL_STEPS_TRAV traversal steps,
+# EVAL_STEPS_CHASE per chase evaluation, one run_eval episode of
+# EVAL_STEPS_CKPT steps, one distill_prior episode of EVAL_STEPS_DISTILL
+EVAL_POP, EVAL_H = 1024, 12
+EVAL_STEPS_TRAV, EVAL_STEPS_CHASE, EVAL_STEPS_CKPT, EVAL_STEPS_DISTILL = 10, 5, 10, 20
 LEARN_HANDOFF = {"epmc": "params/llc,params/prop_rms",
                  "sepmc": ",".join(["params/llc", "params/prop_rms"] + [
                      f"params/mlc_{k}=params/pi_{k}" for k in ("prop_embed", "cmd", "fc", "lstm")]
@@ -267,9 +302,10 @@ LEARN_HANDOFF = {"epmc": "params/llc,params/prop_rms",
 # K6: the MPPI->iLQR hybrid at bench.py bench_hybrid's width (population
 # pop // 4 = 1024, H 50, n_refine 7: S = 8 scenarios) with run_mpc's default
 # 2 iLQR iterations; its PMC loop runs HYB_STEPS control steps, the EPMC and
-# SEPMC hybrid loops HYB_TASK_STEPS at horizon HYB_TASK_HORIZON, 1 iteration.
-HYB_POP, HYB_REFINE, HYB_ITERS, HYB_STEPS = 1024, 7, 2, 2
-HYB_TASK_HORIZON, HYB_TASK_STEPS = 5, 2
+# SEPMC hybrid loops HYB_TASK_STEPS at horizon HYB_TASK_HORIZON, 1 iteration
+# (one step each since phase 14 came in: depth cut to fit the smoke).
+HYB_POP, HYB_REFINE, HYB_ITERS, HYB_STEPS = 1024, 7, 2, 1
+HYB_TASK_HORIZON, HYB_TASK_STEPS = 5, 1
 RICCATI_N, RICCATI_M, RICCATI_S = 37, 12, HYB_REFINE + 1
 # operations and float32 bytes of one Riccati step of one scenario, printed
 # by tools/kernel_op_counts.py (the Pallas kernel's _backward_step traced at
@@ -289,9 +325,6 @@ CHAIN_DEPTH = {("K1", 10, 10): 1228, ("K1", 10, 1): 1390, ("K2", 10, 10): 1410,
                ("K2", 10, 1): 1410, ("K3", 10, 10): 1410, ("K3", 20, 1): 2820,
                ("K4", 10, 10): 1410, ("K4", 20, 1): 2820}
 CHAIN_CYCLES = 4  # latency of a dependent FP32 / FP64 operation on the H100
-PEAK_FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
-PEAK_FP64_FLOPS = 34e12  # H100 SXM, FP64 outside the tensor cores (NVIDIA's data sheet)
-PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 KERNELS = {
     "K1": dict(name="rollout_tracking_fused (K1, eight lanes per candidate, K0 inlined)",
                source="lifelike_tpu_torch/csrc/rollout_tracking.cu",
@@ -428,13 +461,14 @@ def solve_inputs(dtype, horizon, substeps, mass_freeze, pop, seed, noise="ar1",
     return c, params, tl, u.contiguous(), ref
 
 
-def report_diff(label, got, want, tol, shifted=None):
+def report_diff(label, got, want, tol, shifted=None, screen="a 1e-10 m start shift"):
     """Max |kernel - plain| and the count outside rtol = atol = tol; exits
     on a non-finite cost or a disagreement.
 
-    shifted: the plain version's costs from a start state shifted by 1e-10 m.
-    Candidates whose plain cost itself moves beyond the tolerance under that
-    shift (ill-conditioned: contact chaos amplifies the shift, and rounding
+    shifted: the plain version's costs under a perturbation named by
+    `screen` (by default from a start state shifted by 1e-10 m).
+    Candidates whose plain cost itself moves beyond the tolerance under it
+    (ill-conditioned: contact chaos amplifies the perturbation, and rounding
     differences alike) are reported and not gated."""
     import torch
 
@@ -449,7 +483,7 @@ def report_diff(label, got, want, tol, shifted=None):
         moved = (shifted - want).abs()
         gated = moved <= limit
         n_ill = int((~gated).sum())
-        note = (f" | {n_ill} ill-conditioned (plain moves > tol under a 1e-10 m start shift; "
+        note = (f" | {n_ill} ill-conditioned (plain moves > tol under {screen}; "
                 f"max plain shift {float(moved.max()):.3e}"
                 + (f", max|kernel-plain| over them {float(err[~gated].max()):.3e})" if n_ill
                    else ")"))
@@ -1051,48 +1085,88 @@ def check_traces():
                 raise SystemExit(f"trace {trace} {name}: the plant misses the criterion")
 
 
-def device_ms(fn, kernel_name, reps=20):
-    """Device time per launch of the kernels whose name holds `kernel_name`
-    (torch.profiler's CUDA activity), fn called `reps` times."""
+def profiled(fn, reps, whole, attempts=10):
+    """torch.profiler's CUDA activity over `reps` calls of fn, as (events,
+    is_whole): the device events of key_averages() that ran. On the H100
+    the profiler now and then records none or only some of a session's
+    kernels, several sessions in a row (none at all in the full smoke's
+    phase 11 after K5's plain sweep), so each session, framed by 50 ms of
+    idle card, is repeated up to `attempts` times until whole(events)
+    holds; else the last session that recorded anything is returned, not
+    whole (events None when none did). Each miss is printed with its
+    kernel counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    for attempt in range(3):  # the profiler now and then drops most of a run's events
+    last = None
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if kernel_name in e.key]
-        us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-                 for e in events)
-        count = sum(e.count for e in events)
-        if count >= reps // 2:
-            break
-    if us <= 0.0 or count == 0:
-        raise SystemExit(f"torch.profiler recorded no device time for {kernel_name}")
-    return us / 1e3 / count
+            time.sleep(0.05)
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) > 0.0]
+        if whole(events):
+            return events, True
+        say(f"profiler session {attempt + 1} of {attempts} not whole: "
+            + (", ".join(f"{e.key[:48]} x {e.count}" for e in events) or "no kernel record"))
+        last = events or last
+    return last, False
+
+
+def queued_ms(fn, reps=20):
+    """Device time per call of fn, the calls queued back to back behind a
+    spin kernel that outlasts their launch on the host (CUDA events; the
+    gaps between kernels included)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    spin = 0.02
+    while True:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(spin * sm_clock_mhz() * 1e6))
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        host_s = time.perf_counter() - t0
+        e1.synchronize()
+        if host_s < spin / 2:
+            return e0.elapsed_time(e1) / reps
+        spin *= 4
+
+
+def device_ms(fn, kernel_name, reps=20, whole=None):
+    """(ms, how, events): device time per launch of the kernels whose name
+    holds `kernel_name`, fn called `reps` times. From torch.profiler's CUDA
+    activity, the mean over the launches of the first session that recorded
+    one and for which whole(events) holds (by default any), else of the last
+    that recorded one; when none did in 10 sessions, from queued_ms (each
+    call one launch) and events None."""
+    def hits(events):
+        return [e for e in events or () if kernel_name in e.key]
+
+    events, _ = profiled(fn, reps, lambda ev: bool(hits(ev)) and (whole is None or whole(ev)))
+    if not hits(events):
+        return (queued_ms(fn, reps), "device time, CUDA events behind a spin kernel: "
+                "torch.profiler recorded no launch in 10 sessions", None)
+    us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+             for e in hits(events))
+    return us / 1e3 / sum(e.count for e in hits(events)), "device time, torch.profiler", events
 
 
 def call_kernels(fn, reps=5):
     """{name: count per call} of the device kernels and copies that calls of
-    fn run (torch.profiler's CUDA activity over `reps` calls)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(3):  # the profiler now and then drops a run's events
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ran = {e.key: e.count / reps for e in prof.key_averages()
-               if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) > 0.0}
-        if ran:
-            break
-    return ran
+    fn run, from the first of `profiled`'s sessions that recorded any ({}
+    when none did)."""
+    events, _ = profiled(fn, reps, bool)
+    return {e.key: e.count / reps for e in events or ()}
 
 
 def time_pgs():
@@ -1131,26 +1205,43 @@ def time_pgs():
         r, it = len(idx), p.iterations
         call = lambda: pgs_cuda.pgs_sweep(*system, p.mu, idx, iterations=it)
         wrapper_ms = cuda_ms(call, reps=20, warmup=3)
-        kernel_ms = device_ms(call, "pgs_sweep_kernel")
+        # the plant's tensors go to the kernel as they are: a call launches K5
+        # once and allocates its two outputs only; and the profiler, where
+        # it records the calls, shows no kernel but K5 (a copy would run on
+        # every call, so a session with another kernel is repeated in case
+        # that was a stray record)
+        k0 = pgs_cuda.pgs_sweep.launches
+        a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for _ in range(5):
+            call()
+        per_call = ((pgs_cuda.pgs_sweep.launches - k0) / 5,
+                    (torch.cuda.memory_stats()["allocation.all.allocated"] - a0) / 5)
+        if per_call != (1.0, 2.0):
+            raise SystemExit(f"K5 wrapper, {label}: {per_call[0]:g} launches and "
+                             f"{per_call[1]:g} allocations per call, expected 1 and 2")
+        reps = 20
+        kernel_ms, how, events = device_ms(call, "pgs_sweep_kernel", reps, whole=lambda ev: all(
+            "pgs_sweep_kernel" in e.key for e in ev))
+        ran = {e.key: e.count / reps for e in events or ()}
+        if [k for k in ran if "pgs_sweep_kernel" not in k]:
+            raise SystemExit(f"K5 wrapper: a call on the plant's tensors ran {ran} per call")
         plain_ms = cuda_ms(lambda: pgs_cuda.pgs_sweep_plain(*system, p.mu, idx, iterations=it),
                            reps=1, warmup=1)
-        ran = call_kernels(call)
-        if [k for k in ran if "pgs_sweep_kernel" not in k] or not ran:
-            raise SystemExit(f"K5 wrapper: a call on the plant's tensors ran {ran} per call")
         floor_ms = SWEEP_DEPTH[r] * it * CHAIN_CYCLES / (sm_clock_mhz() * 1e3)
         ops = OPS_PER_SWEEP[r] * it * lanes
         # each input read once, each output written once: v, lam0, J, MinvJT,
         # d, b, lo, hi, mu; mu_idx (int32); v and lam out
         nbytes = 4 * lanes * (2 * (18 + r) + 2 * r * 18 + 4 * r + 1) + 4 * r
         bound_ms, by, ops_ms, bytes_ms = bound(ops, nbytes)
-        say(f"timing K5 f32 {label}, {it} iterations: kernel {kernel_ms:.4f} ms (device time, "
-            f"torch.profiler) | wrapper call {wrapper_ms:.4f} ms (CUDA events) | plain "
+        say(f"timing K5 f32 {label}, {it} iterations: kernel {kernel_ms:.4f} ms ({how}) | "
+            f"wrapper call {wrapper_ms:.4f} ms (CUDA events) | plain "
             f"{plain_ms:.1f} ms | bound {bound_ms:.6f} ms ({ops:.4e} ops / 67 TFLOP/s = "
             f"{ops_ms:.6f} ms; {nbytes} B / 3.35 TB/s = {bytes_ms:.6f} ms, bound by {by}) | "
             f"kernel at {100 * bound_ms / kernel_ms:.4f}% of bound | chain floor "
             f"{SWEEP_DEPTH[r]} levels x {it} iterations x {CHAIN_CYCLES} cycles = {floor_ms:.4f} ms, "
             f"kernel {kernel_ms / floor_ms:.2f}x | library: none")
-        say(f"timing K5 wrapper call, {label}: device work per call {ran} (no copy kernel)")
+        say(f"timing K5 wrapper call, {label}: 1 launch and 2 allocations (the outputs) per call; "
+            f"device work per call {ran or 'not recorded by torch.profiler'} (no copy kernel)")
         rows[lanes] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                            library_ms=None)
     step_ms = cuda_ms(lambda: impulse.control_step(model, p, s, lam, stand), reps=5, warmup=1)
@@ -1319,7 +1410,7 @@ class SweepCapture:
 
 
 def time_riccati():
-    """Phase 11 for K6: device time (torch.profiler), the wrapper call, the
+    """Phase 11 for K6: device time (device_ms), the wrapper call, the
     plain sweep and the bound at the hybrid loop's shape (S 8, H 50) in
     float32 and float64, and at S 1. Returns the K6 row of the kernels line
     (float32, S 8)."""
@@ -1333,20 +1424,21 @@ def time_riccati():
         args = riccati_system(S, HORIZON, dtype, 70 + S)
         call = lambda: riccati_cuda.riccati_sweep(*args, reg=1e-3)
         wrapper_ms = cuda_ms(call, reps=20, warmup=3)
-        kernel_ms = device_ms(call, "riccati_sweep_kernel")
+        kernel_ms, how, _ = device_ms(call, "riccati_sweep_kernel")
         plain_ms = cuda_ms(lambda: riccati_cuda.riccati_sweep_plain(*args, reg=1e-3), reps=1)
         ops = RICCATI_OPS_PER_STEP * S * HORIZON
         nbytes = RICCATI_BYTES_PER_STEP * S * HORIZON * (dtype.itemsize // 4)
-        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_FP64_FLOPS
-        ops_ms, bytes_ms = 1e3 * ops / peak, 1e3 * nbytes / PEAK_HBM_BYTES
+        spec = peaks()
+        peak = spec.peak_flops_f32 if dtype == torch.float32 else spec.peak_flops_f64
+        ops_ms, bytes_ms = 1e3 * ops / peak, 1e3 * nbytes / spec.hbm_bytes_per_s
         bound_ms, by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
         name = str(dtype).replace("torch.", "")
         floor_ms = RICCATI_DEPTH_PER_STEP * HORIZON * CHAIN_CYCLES / (sm_clock_mhz() * 1e3)
         say(f"chain floor K6 {name} S {S}: {RICCATI_DEPTH_PER_STEP} levels x H {HORIZON} x "
             f"{CHAIN_CYCLES} cycles = {floor_ms:.4f} ms | kernel {kernel_ms:.4f} ms, "
             f"{kernel_ms / floor_ms:.2f}x the floor")
-        say(f"timing K6 {name} S {S} H {HORIZON}: kernel {kernel_ms:.4f} ms (device time, "
-            f"torch.profiler) | wrapper call {wrapper_ms:.4f} ms (CUDA events) | plain "
+        say(f"timing K6 {name} S {S} H {HORIZON}: kernel {kernel_ms:.4f} ms ({how}) | "
+            f"wrapper call {wrapper_ms:.4f} ms (CUDA events) | plain "
             f"{plain_ms:.2f} ms | bound {bound_ms:.6f} ms ({ops:.4e} ops / {peak / 1e12:g} "
             f"TFLOP/s = {ops_ms:.6f} ms; {nbytes} B / 3.35 TB/s = {bytes_ms:.6f} ms, bound by "
             f"{by}) | kernel at {100 * bound_ms / kernel_ms:.4f}% of bound | {S} of 132 SMs | "
@@ -1453,20 +1545,22 @@ def closed_loop(task, launches_of, log_prefix, hard_contact=False, hybrid=None):
     flat = [x for r in rewards for x in (r if isinstance(r, list) else [r])]
     say(f"{log_prefix} rewards: " + " ".join(
         "/".join(f"{x:.6f}" for x in r) if isinstance(r, list) else f"{r:.6f}" for r in rewards))
-    t_ms = [1e3 * t for t in out["t_solve"][1:]]
+    # a one-step run has no step after the warm-up: its one time is reported
+    after = "after warm-up" if steps > 1 else "of the one step, warm-up included"
+    t_ms = [1e3 * t for t in out["t_solve"][1:] or out["t_solve"]]
     extra = ""
     if task == "epmc":
         extra = (f" | fall at steps {[i for i, f in enumerate(out['falls']) if f]}, reached at "
                  f"steps {[i for i, r in enumerate(out['reached']) if r]}")
-        p_ms = [1e3 * t for t in out["t_plant"][1:]]
-        extra += (f" | plant step after warm-up p50 {statistics.median(p_ms):.3f} ms max "
+        p_ms = [1e3 * t for t in out["t_plant"][1:] or out["t_plant"]]
+        extra += (f" | plant step {after} p50 {statistics.median(p_ms):.3f} ms max "
                   f"{max(p_ms):.3f} ms")
     if task == "sepmc":
         extra = f" | games {out['games']}, final distance {out['final_dist']:.3f} m"
     if hybrid:
         extra += f" | refined cost per step {out['refined_cost']} | seed costs {out['seed_costs']}"
     say(f"{log_prefix}: {len(rewards)} steps, episode ends at {out['episode_ends']}{extra}, "
-        f"solve latency after warm-up p50 {statistics.median(t_ms):.3f} ms max {max(t_ms):.3f} ms "
+        f"solve latency {after} p50 {statistics.median(t_ms):.3f} ms max {max(t_ms):.3f} ms "
         f"(CUDA events) | kernel launches {launches}")
     if len(rewards) != steps or not all(math.isfinite(r) for r in flat):
         raise SystemExit(f"{log_prefix}: missing or non-finite rewards")
@@ -1507,7 +1601,6 @@ def time_sweep(pop, launches_of=(), rounds=SWEEP_ROUNDS):
     time over the round's unprofiled time)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from lifelike_tpu_torch.parallel import scenario_sweep
 
@@ -1533,30 +1626,43 @@ def time_sweep(pop, launches_of=(), rounds=SWEEP_ROUNDS):
     launches = [k.launches for k in launches_of]
     if not bool(torch.isfinite(cost).all()) or not bool(torch.isfinite(u).all()):
         raise SystemExit(f"sweep pop {pop}: non-finite costs or plans")
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    state, marks = {"u": u}, []
+
+    def profiled_round():
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        u, cost = round_(u)
+        state["u"], state["cost"] = round_(state["u"])
         e1.record()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    prof_ms = e0.elapsed_time(e1)
-    kernels = {}
-    for key, symbol in (("K3", "rollout_plan_kernel"), ("K4", "rollout_chase_kernel")):
-        hits = [e for e in dev if symbol in e.key]
-        n = sum(e.count for e in hits)
-        kernels[key] = (n, sum(e.self_device_time_total for e in hits) / 1e3 / max(n, 1))
-    other_ms = dev_ms - sum(n * ms for n, ms in kernels.values())
+        marks.append((e0, e1))
+
+    symbols = (("K3", "rollout_plan_kernel"), ("K4", "rollout_chase_kernel"))
+    per_round = sum(launches) / rounds
+    events, is_whole = profiled(profiled_round, 1, lambda ev: sum(
+        e.count for e in ev for _, sym in symbols if sym in e.key) == per_round)
+    u, cost = state["u"], state["cost"]
+    if not is_whole:
+        dev_ms = prof_ms = float("nan")
+        profiled_line = "not measured (torch.profiler recorded no whole round)"
+    else:
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        prof_ms = marks[-1][0].elapsed_time(marks[-1][1])
+        kernels = {}
+        for key, symbol in symbols:
+            hits = [e for e in dev if symbol in e.key]
+            n = sum(e.count for e in hits)
+            kernels[key] = (n, sum(e.self_device_time_total for e in hits) / 1e3 / max(n, 1))
+        other_ms = dev_ms - sum(n * ms for n, ms in kernels.values())
+        profiled_line = (f"device time (torch.profiler) {dev_ms:.3f} ms of {prof_ms:.3f} ms (CUDA "
+                         f"events), busy share {dev_ms / prof_ms:.4f}: "
+                         + ", ".join(f"{k} {n} x {ms:.3f} ms" for k, (n, ms) in kernels.items())
+                         + f", other kernels {other_ms:.3f} ms")
     p50 = statistics.median(times)
     name = f"sepmc_sweep_latency_s{SWEEP_S}_pop{pop}_H{cfg.horizon}"
     say(f"sweep {name}: {rounds} chained rounds after 2 warm-up (CUDA events) p50 {p50:.3f} ms "
         f"max {max(times):.3f} ms ({', '.join(f'{t:.3f}' for t in times)}) | kernel launches "
-        f"{launches} in {rounds} rounds | one profiled round: device time (torch.profiler) "
-        f"{dev_ms:.3f} ms of {prof_ms:.3f} ms (CUDA events), busy share {dev_ms / prof_ms:.4f}: "
-        + ", ".join(f"{k} {n} x {ms:.3f} ms" for k, (n, ms) in kernels.items())
-        + f", other kernels {other_ms:.3f} ms | best cost mean {float(cost.mean()):.4f} min "
-        f"{float(cost.min()):.4f}")
+        f"{launches} in {rounds} rounds | one profiled round: {profiled_line} | best cost mean "
+        f"{float(cost.mean()):.4f} min {float(cost.min()):.4f}")
     return dict(name=name, p50_ms=p50, max_ms=max(times), launches=launches,
                 busy=dev_ms / prof_ms)
 
@@ -1871,8 +1977,9 @@ def time_networks(card):
             e1.synchronize()
             ms.append(e0.elapsed_time(e1))
         kernels = call_kernels(fwd)
+        count = f"{sum(kernels.values()):g}" if kernels else "not recorded by torch.profiler:"
         say(f"forward {name} B {b}: p50 {statistics.median(ms):.4f} ms, min {min(ms):.4f}, max "
-            f"{max(ms):.4f} over {NET_REPS} calls (CUDA events) | {sum(kernels.values()):g} "
+            f"{max(ms):.4f} over {NET_REPS} calls (CUDA events) | {count} "
             f"device kernels / copies per forward")
 
 
@@ -2184,9 +2291,199 @@ def report_learners(rows, smi):
             + ("not measured" if mem is None else f"{mem / 2**20:.1f} MiB"))
 
 
+def check_prior_bank(fns):
+    """Phase 14a: make_eval's prior bank for elements 1-3; K2 against its
+    plain version, float32, on one solve's candidates of each prior at its
+    own inputs (its TraversalWeights, speed scale, gait weight and clip
+    reference at the eval loop's first clip times), population EVAL_POP, H
+    EVAL_H, the corridor prune of the element's first state. The robot lands
+    within the horizon, and contact chaos turns the float32 rounding of a
+    few candidates into costs far apart, so the candidates whose plain cost
+    moves beyond the tolerance in float64 (the plain version's own float32
+    rounding; computed for the candidates outside the gate) are counted and
+    not gated, as phase 5's float64 checks screen theirs. Returns the
+    largest gated error."""
+    import numpy as np
+    import torch
+
+    from lifelike_tpu_torch.envs import playground
+    from lifelike_tpu_torch.ops import traversal_cuda
+    from lifelike_tpu_torch.physics import batched as B
+    from lifelike_tpu_torch.solver import mpc_tasks, mppi_tl, rollout_tl
+    from lifelike_tpu_torch.solver.mppi import MPPIConfig
+    from lifelike_tpu_torch.tools import make_eval as me
+
+    worst = 0.0
+    for eid in (1, 2, 3):
+        dev, model, cfg, clips, _, priors, skill = me.traversal_setup(eid, EVAL_POP, EVAL_H,
+                                                                      device="cuda")
+        c = B.tl_constants(model, dtype=torch.float32, device=dev)
+        c64 = B.tl_constants(model, dtype=torch.float64, device=dev)
+        mcfg = MPPIConfig(horizon=EVAL_H, population=EVAL_POP, iterations=2, sigma=0.12)
+        gen = torch.Generator(device=dev).manual_seed(1000)
+        s, _ = playground.reset(model, cfg, gen)
+        spd = torch.clamp_max(s.target_spd, me.SPD_CAP)
+        table = traversal_cuda.pack_boxes(mpc_tasks._corridor_scene(
+            cfg.params, mcfg, s.robot, s.scene, s.target_pos, spd, mpc_tasks.CONTACT_K))
+        tl = mpc_tasks._tl_single(s.robot)
+        t_clips = (me.CLIP_LOOP[0], skill["t0"] if skill["kind"] == "play" else skill["loop"][0])
+        ids, weights, scales, gaits = mpc_tasks._prior_tuples(priors, 1.0)
+        rng = np.random.default_rng(140 + eid)
+        for pi, (cid, w, ss, gw) in enumerate(zip(ids, weights, scales, gaits)):
+            ref = rollout_tl.precompute_reference(model, clips, cid, t_clips[pi], EVAL_H,
+                                                  cfg.policy_dt)
+            eps = torch.as_tensor(rng.standard_normal((EVAL_H, 4, 3, EVAL_POP // 128, 128)),
+                                  dtype=torch.float32, device=dev)
+            u = 0.12 * mppi_tl._smooth_noise_tl(None, eps.shape, 0.7, torch.float32, dev, eps=eps)
+            args = (c, cfg.params, tl, u.contiguous(), table, ref, s.target_pos, spd * ss,
+                    cfg.reward_type, cfg.max_steps, w, gw)
+            got = traversal_cuda.rollout_traversal_fused(*args)
+            want = traversal_cuda.rollout_traversal_plain(*args)
+            # the float64 screen, run on the candidates outside the gate only
+            # (a candidate's cost does not depend on the others)
+            exact = want.clone()
+            out = ((got - want).abs() > 2e-4 * (1.0 + want.abs())).reshape(-1).nonzero()[:, 0]
+            if len(out):
+                f64 = lambda x: x.to(torch.float64)
+                u_out = args[3].reshape(EVAL_H, 4, 3, -1)[..., out][..., None, :].contiguous()
+                exact.view(-1)[out] = traversal_cuda.rollout_traversal_plain(
+                    c64, cfg.params, B.map_state(f64, tl), f64(u_out), f64(table), ref,
+                    f64(s.target_pos), f64(spd * ss), *args[8:]).reshape(-1).to(torch.float32)
+            worst = max(worst, report_diff(
+                f"check K2 f32 prior bank element {eid} prior {pi} (clip {cid}, "
+                f"{'default weights' if w == type(w)() else 'own weights'}, speed x {ss:g}, "
+                f"gait weight {gw:g}): pop {EVAL_POP} H {EVAL_H} substeps "
+                f"{cfg.params.substeps}", got, want, 2e-4, shifted=exact,
+                screen="float64"))
+    return worst
+
+
+def run_task_evals(fns, smi):
+    """Phase 14b-f: make_eval's task evaluation on the card, each run with
+    every kernel count set to 0 first. Returns its rows."""
+    import statistics as st
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lifelike_tpu_torch.compat import tleague_import
+    from lifelike_tpu_torch.models import epmc, params
+    from lifelike_tpu_torch.motion import motion_lib
+    from lifelike_tpu_torch.tools import distill_prior
+    from lifelike_tpu_torch.tools import make_eval as me
+    from lifelike_tpu_torch.utils import profiling
+
+    def zero():
+        for k in fns:
+            k.launches = 0
+
+    def counts():
+        return [k.launches for k in fns]
+
+    log = lambda m: say("make_eval: " + m.strip())
+    rows = {}
+    # (b) eval_traversal: K2 = steps x priors x MPPI iterations, nothing else
+    for eid in (1, 2, 3):
+        zero()
+        (r,) = me.eval_traversal(1, EVAL_STEPS_TRAV, eid, EVAL_POP, EVAL_H, device="cuda",
+                                 log=log)
+        got = counts()
+        want = [0, r["steps"] * 2 * 2, 0, 0, 0, 0]
+        if got != want:
+            raise SystemExit(f"eval_traversal element {eid}: kernel launches (K1-K6) {got}, "
+                             f"expected {want} (steps x 2 priors x 2 iterations)")
+        flat = [x for step in r["prior_costs"] for x in step]
+        if not all(math.isfinite(x) for x in flat + [r["reward"], r["progress"]]):
+            raise SystemExit(f"eval_traversal element {eid}: non-finite costs or rewards")
+        solve, plant = r["solve_ms"][1:], r["plant_ms"][1:]
+        rows[f"traversal {eid}"] = dict(r, launches=got)
+        say(f"eval_traversal element {eid} ({me.ELEMENT_NAMES[eid]}) [{smi}]: pop {EVAL_POP} H "
+            f"{EVAL_H}, 2 priors x 2 iterations, {r['steps']} steps, {r['outcome']}, progress "
+            f"{r['progress']:.3f} m, reward {r['reward']:.4f} | prior per step {r['sel']} | "
+            f"solve ms after the first (CUDA events) p50 {st.median(solve):.2f} max "
+            f"{max(solve):.2f} (first {r['solve_ms'][0]:.1f}) | plant ms p50 "
+            f"{st.median(plant):.2f} max {max(plant):.2f} | kernel launches (K1-K6) {got}")
+    # (c) the chase evaluations: K3 = K4 = steps x 1 round x 2 robots (1 iteration)
+    for name, run in (("chase standing escapee", lambda: me.eval_chase(
+            1, EVAL_STEPS_CHASE, EVAL_POP, EVAL_H, True, device="cuda", log=log)),
+                      ("chase game", lambda: me.eval_chase_game(
+            1, EVAL_STEPS_CHASE, EVAL_POP, EVAL_H, device="cuda", log=log))):
+        zero()
+        t0 = time.perf_counter()
+        (r,) = run()
+        dt = time.perf_counter() - t0
+        got = counts()
+        want = [0, 0, 2 * r["steps"], 2 * r["steps"], 0, 0]
+        if got != want:
+            raise SystemExit(f"eval {name}: kernel launches (K1-K6) {got}, expected {want}")
+        rows[name] = dict(r, launches=got, s=dt)
+        say(f"eval {name} [{smi}]: pop {EVAL_POP} per robot H {EVAL_H}, {r['steps']} steps, "
+            f"{r['outcome']} | {dt:.2f} s wall (set-up included) | kernel launches (K1-K6) "
+            f"{got}")
+    # (d) the checkpoint section: run_eval in a subprocess on the card
+    t0 = time.perf_counter()
+    ck = me.eval_checkpoints(1, EVAL_STEPS_CKPT, seeds=1, device="cuda", log=log)
+    eps = ck["pmc"]["episodes"]
+    if ck["pmc"]["rc"] != 0 or len(eps) != 1 or not math.isfinite(eps[0][0]):
+        raise SystemExit(f"eval_checkpoints pmc: {ck['pmc']}")
+    if any(ck[t]["episodes"] or ck[t]["rc"] is not None for t in ck if t != "pmc"):
+        raise SystemExit(f"eval_checkpoints: a task without a model ran: {ck}")
+    rows["checkpoints"] = dict(ck, s=time.perf_counter() - t0)
+    say(f"eval_checkpoints pmc ({os.path.basename(me.MODELS['pmc'])}) through "
+        f"bin/run_eval --device=cuda: reward {eps[0][0]:.3f} over {eps[0][1]} steps, rc 0 | "
+        f"{rows['checkpoints']['s']:.1f} s wall (a subprocess) | other tasks: no model")
+    # (e) distill_prior on a seeded EPMC flat list: roll, mine, resample,
+    # write, read back (a 20-step episode holds none of the 60-125-step
+    # crawl windows, so the window here is half the episode, any height)
+    zero()
+    flat = seeded_flat_list(tleague_import.EPMC_PATHS, params.flax_tree(epmc.EPMCNet()), 14)
+    t0 = time.perf_counter()
+    ep = distill_prior.roll_policy("hole", 1, EVAL_STEPS_DISTILL, 0, flat, device="cuda",
+                                   log=lambda m: say("distill_prior: " + m.strip()))
+    n = len(ep[0]["states"])
+    hit = distill_prior.find_crawl(ep, z_max=math.inf, z_min=-math.inf, widths=(max(1, n // 2),))
+    if hit is None or not np.isfinite(ep[0]["states"]).all():
+        raise SystemExit(f"distill_prior: {n} states, window {hit}")
+    ei, w0, W, spd = hit
+    frames = distill_prior.reorient_resample(ep[ei]["states"][w0:w0 + W])
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "hole_crawl.json")
+        distill_prior.write_prior(path, frames, "seeded flat list", ei, (w0, w0 + W), spd)
+        clips = motion_lib.load_clips(path, device="cuda")
+    if tuple(clips.frames.shape) != (1, len(frames), 19) or \
+            not bool(torch.isfinite(clips.frames).all()):
+        raise SystemExit(f"distill_prior: clip read back as {tuple(clips.frames.shape)}")
+    rows["distill"] = dict(steps=n, window=(w0, W), frames=len(frames), launches=counts(),
+                           s=time.perf_counter() - t0)
+    say(f"distill_prior on the card: {n} steps of a seeded EPMC flat list, window [{w0}, "
+        f"{w0 + W}) at {spd:.3f} m/s -> {len(frames)} frames at 120 Hz, written and read back "
+        f"by motion_lib.load_clips | {rows['distill']['s']:.2f} s | kernel launches (K1-K6) "
+        f"{rows['distill']['launches']}")
+    # (f) utils.profiling names the card
+    spec = profiling.detect_chip()
+    if spec.name != torch.cuda.get_device_name(0):
+        raise SystemExit(f"detect_chip: {spec.name}, the card is {torch.cuda.get_device_name(0)}")
+    rows["chip"] = spec._asdict()
+    say(f"utils.profiling.detect_chip: {spec.name} | peaks FP32 {spec.peak_flops_f32:g} / FP64 "
+        f"{spec.peak_flops_f64:g} FLOP/s, HBM {spec.hbm_bytes_per_s:g} B/s at "
+        f"{spec.power_limit_w:g} W | nvidia-smi: {smi}")
+    return rows
+
+
+def peaks():
+    """The H100 SXM's published peaks (utils.profiling.H100_SXM: FP32 / FP64
+    outside the tensor cores, HBM3 bytes/s, at its 700 W limit), the one
+    place the bounds read them from."""
+    from lifelike_tpu_torch.utils import profiling
+
+    return profiling.H100_SXM
+
+
 def bound(ops, nbytes):
     """(bound ms, what bounds it, ops ms, bytes ms) on this card's peaks."""
-    ops_ms, bytes_ms = 1e3 * ops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_HBM_BYTES
+    spec = peaks()
+    ops_ms, bytes_ms = 1e3 * ops / spec.peak_flops_f32, 1e3 * nbytes / spec.hbm_bytes_per_s
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), ops_ms, \
         bytes_ms
 
@@ -2507,6 +2804,13 @@ def main():
     report_learners(run_learners(fns), smi)
     say(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
+    # 14. make_eval's task evaluation: the prior bank's K2 inputs vs the
+    # plain version, then each evaluation with every kernel count set to 0 first
+    t14 = time.perf_counter()
+    check_prior_bank(fns)
+    run_task_evals(fns, smi)
+    say(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
     say(json.dumps({"kernels": [
         dict(name=KERNELS[k]["name"], route="cuda", source=KERNELS[k]["source"],
              replaces=KERNELS[k]["replaces"], launches=launches[k], max_abs_err=err[k],
@@ -2654,9 +2958,43 @@ def learner_mode():
     return 0
 
 
+def eval_mode():
+    """The --eval mode: phase 14 alone, then one JSON line of its rows."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs one NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from lifelike_tpu_torch.ops import cuda_build, pgs_cuda, rollout_cuda
+    from lifelike_tpu_torch.ops import traversal_cuda as tc
+    from lifelike_tpu_torch.solver import riccati_cuda
+
+    smi = nvidia_smi()
+    say(f"eval: {torch.cuda.get_device_name(0)} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | nvidia-smi: {smi}")
+    kernels = (tc.KERNEL, tc.PLAN_KERNEL, tc.CHASE_KERNEL)
+    t0 = time.perf_counter()
+    cuda_build.build_all(list(kernels))
+    for k in kernels:
+        tc.build(k)
+    say(f"build: K2, K3, K4 in {time.perf_counter() - t0:.1f} s wall")
+    fns = (rollout_cuda.rollout_tracking_fused, tc.rollout_traversal_fused,
+           tc.rollout_plan_fused, tc.rollout_chase_fused, pgs_cuda.pgs_sweep,
+           riccati_cuda.riccati_sweep)
+    t14 = time.perf_counter()
+    err = check_prior_bank(fns)
+    rows = run_task_evals(fns, smi)
+    say(json.dumps({"smi": smi, "phase14_s": time.perf_counter() - t14, "k2_max_abs_err": err,
+                    "rows": rows}, default=str))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--timing"]:
         sys.exit(timing_mode(sys.argv[2:]))
     if sys.argv[1:2] == ["--learner"]:
         sys.exit(learner_mode())
+    if sys.argv[1:2] == ["--eval"]:
+        sys.exit(eval_mode())
     sys.exit(main())

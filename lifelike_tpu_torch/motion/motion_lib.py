@@ -1,6 +1,6 @@
 """Mocap motion library: clips as device tensors + batched interpolation.
 
-Port of lifelike_tpu.motion.motion_lib (without the gait variants). Clip
+Port of lifelike_tpu.motion.motion_lib. Clip
 format as the reference MotionLib: JSON files with `FrameDuration` (1/120 s)
 and `Frames` of 19 floats [x, y, z, qx, qy, qz, qw, 12 joint angles], leg
 order FR, FL, HR, HL, read by the C++ parser (_native) with the json module
@@ -9,7 +9,10 @@ max_len, 19) float32 tensor; interpolation lerps positions/joints, slerps
 orientation and finite-differences velocities over one frame step
 (reference motion_lib.py:117-166). Jump-event obstacles (`ObstacleEvents`)
 are found on the host at load time; prioritized clip re-sampling
-p ~ (1 - avg_reward)^factor (`PrioritizedClipSampler`) stays on the host.
+p ~ (1 - avg_reward)^factor (`PrioritizedClipSampler`) stays on the host, as
+do the gait variants that feed the traversal controllers' prior bank
+(`crouch_variant`, `crawl_variant`, `highstep_variant`: numpy in, numpy
+out).
 
 Every index is clamped explicitly: a JAX gather clamps an out-of-range index
 where PyTorch would raise.
@@ -298,3 +301,77 @@ def make_synthetic_clip(num_frames=240, frame_step=1.0 / 120.0, seed=0):
         2 * np.pi * 1.5 * t[:, None] + phase[None, :]
     )
     return frames
+
+
+def crouch_variant(frames, hip_delta=0.45, knee_delta=0.9, knee_max=2.50,
+                   drop=None, joint_lower=None, joint_upper=None):
+    """Synthesize a crouch-walk clip from walk frames (N, 19): fold the hips
+    and knees, clamp to joint limits, and lower the base accordingly.
+
+    The reference clip library has walk/run/jump/sit families but no crawl;
+    the hole courses (0.25-0.3 m gaps under elevated blocks) need one, so
+    the skill bank synthesizes it — the gait prior is a sampling PRIOR, not
+    a dynamics ground truth, and the MPC's noise + physics rollouts adapt
+    it. hip_y is joint index 1 of each leg triple, knee index 2 (leg-major
+    FR, FL, HR, HL); drop defaults to the height loss implied by the leg
+    geometry (thigh 0.2115 + shank 0.24 chain), ~0.16 m.
+    """
+    out = np.array(frames, np.float32, copy=True)
+    q = out[:, 7:].reshape(-1, 4, 3)
+    q[:, :, 1] -= hip_delta
+    q[:, :, 2] = np.minimum(q[:, :, 2] + knee_delta, knee_max)
+    if joint_lower is not None and joint_upper is not None:
+        # retargeted mocap can slightly exceed URDF limits; a synthesized
+        # prior should not add to that
+        q[:] = np.clip(q, np.reshape(joint_lower, (4, 3)),
+                       np.reshape(joint_upper, (4, 3)))
+    if drop is None:
+        drop = 0.16
+    out[:, 2] = np.maximum(out[:, 2] - drop, 0.12)
+    return out
+
+
+def crawl_variant(frames, pose=(0.0, -0.2, 2.25), gain=0.3,
+                  base_height=0.13, joint_lower=None, joint_upper=None,
+                  knee_cap=2.45):
+    """Synthesize a LOW crawl clip: a flat crawl pose plus the walk clip's
+    joint oscillation scaled by `gain` (keeps the stepping rhythm at low
+    amplitude).
+
+    crouch_variant bottoms out at a ~0.25 m total height because the walk's
+    knee / wheel points swing above the base; the default pose (q1, q2, q3)
+    = (0, -0.2, 2.25) at gain 0.3 gives base ~0.15 m and a top of ~0.22 m
+    over the gait cycle, inside the 0.25-0.3 m hole gaps of the reference
+    courses. knee_cap keeps the oscillation off the 2.544 rad URDF knee
+    limit.
+    """
+    out = np.array(frames, np.float32, copy=True)
+    q = out[:, 7:].reshape(-1, 4, 3)
+    mean = q.mean(axis=0, keepdims=True)
+    posa = np.reshape(np.asarray(pose, np.float32), (1, 1, 3))
+    q[:] = posa + gain * (q - mean)
+    q[:, :, 2] = np.minimum(q[:, :, 2], knee_cap)
+    if joint_lower is not None and joint_upper is not None:
+        q[:] = np.clip(q, np.reshape(joint_lower, (4, 3)),
+                       np.reshape(joint_upper, (4, 3)))
+    out[:, 2] = base_height
+    return out
+
+
+def highstep_variant(frames, gain=1.6, lift=0.10, joint_lower=None,
+                     joint_upper=None):
+    """Synthesize a high-stepping climb gait from walk frames (N, 19):
+    amplify each leg's hip / knee oscillation about its temporal mean by
+    `gain` (taller swing arcs: foot clearance for 0.1-0.25 m cube steps)
+    and raise the base by `lift` so the stance legs extend, giving the
+    climb headroom. Like crouch_variant this is a sampling PRIOR.
+    """
+    out = np.array(frames, np.float32, copy=True)
+    q = out[:, 7:].reshape(-1, 4, 3)
+    mean = q.mean(axis=0, keepdims=True)
+    q[:, :, 1:] = mean[:, :, 1:] + gain * (q[:, :, 1:] - mean[:, :, 1:])
+    if joint_lower is not None and joint_upper is not None:
+        q[:] = np.clip(q, np.reshape(joint_lower, (4, 3)),
+                       np.reshape(joint_upper, (4, 3)))
+    out[:, 2] += lift
+    return out

@@ -9,7 +9,8 @@ sampling instead of a policy network —
     target (reference max_game_elements/playground_env.py). Each solve
     prunes the scene to the CONTACT_K boxes nearest the reachable corridor
     and scores every candidate with ops.traversal_cuda.rollout_traversal_fused
-    (K2).
+    (K2); the multigait controller runs one MPPI update per gait prior of a
+    bank and executes the cheapest (or the gated) prior's plan.
   * chase: two-robot Chase Tag in the V4 arena (reference
     max_game/chase_tag_game_env.py:640-697). The two robots are coupled by
     alternating best response: each robot's candidates
@@ -28,6 +29,7 @@ at the robot's current joints.
 import torch
 
 from lifelike_tpu_torch import _device
+from lifelike_tpu_torch.costs.traversal import TraversalWeights
 from lifelike_tpu_torch.ops import rollout_cuda, traversal_cuda
 from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.scene import boxes
@@ -133,6 +135,86 @@ def make_gait_traversal_controller(model, c: B.TLConstants, params, cfg: MPPICon
         u_exec = (ref.target_joint[0, ..., 0, 0] + u_opt[0]).reshape(12)
         u_next = torch.cat([u_opt[1:], u_opt[-1:]], dim=0)
         return u_exec, u_next, diag
+
+    return controller
+
+
+def _prior_tuples(priors, gait_weight):
+    """(clip indices, TraversalWeights, speed scales, gait weights) of the
+    prior tuples (clip index[, weights[, speed scale[, gait weight]]]); a
+    missing or None element takes its default."""
+    def part(p, i, default):
+        return p[i] if len(p) > i and p[i] is not None else default
+
+    return ([int(p[0]) for p in priors],
+            [part(p, 1, TraversalWeights()) for p in priors],
+            [float(part(p, 2, 1.0)) for p in priors],
+            [float(part(p, 3, gait_weight)) for p in priors])
+
+
+def select_prior(costs, force_sel=-1):
+    """The prior to execute: force_sel where it is >= 0, else the argmin of
+    the priors' weighted costs (P,). As jnp.argmin, torch.argmin returns the
+    first NaN where a cost is NaN, and the first of equal minima. A 0-d
+    int64 tensor on the costs' device (no host read)."""
+    fs = torch.as_tensor(force_sel, dtype=torch.int64, device=costs.device)
+    return torch.where(fs >= 0, fs, torch.argmin(costs))
+
+
+def make_multigait_traversal_controller(model, c: B.TLConstants, params, cfg: MPPIConfig, clips,
+                                        priors, reward_type="joystick", max_steps=1000,
+                                        contact_k=CONTACT_K, gait_weight=1.0, device="cuda"):
+    """Traversal MPC with a BANK of gait priors (e.g. walk loop + jump): one
+    MPPI solve per prior each replan, the cheapest weighted plan wins.
+
+    priors: tuples whose first element is the clip index; an optional second
+    element is a per-prior TraversalWeights (a crouch prior must relax the
+    stand-height hinge and set crawl_gap, or the posture / clearance costs
+    veto the very crawl it exists for); an optional third a speed scale on
+    target_spd; an optional fourth a gait weight (default `gait_weight`).
+
+    f(generator, robot_state, scene, target_pos, target_spd, t_clips (P,),
+    u_warms (P, H, 4, 3), force_sel=-1, eps=None) -> (u_exec (12,), u_warms'
+    (P, H, 4, 3), sel (0-d int64 tensor), {"prior_costs": (P,)}). One
+    corridor prune per replan serves every prior; each prior's MPPI update
+    scores its candidates with K2 (rollout_traversal_fused) at that prior's
+    weights, speed scale and gait weight, one launch per prior per
+    iteration, in prior order. force_sel >= 0 pins that prior (the eval
+    loop's per-obstacle skill gating); otherwise `select_prior`. eps:
+    injected raw normals, P lists of cfg.iterations tensors, one per prior
+    (the reference splits its key once per prior)."""
+    dev = _check_device(device, c)
+    if clips.frames.device.type != dev.type:
+        raise ValueError(f"clips on {clips.frames.device}, controller device {dev}")
+    policy_dt = params.dt * params.substeps
+    clip_ids, prior_weights, spd_scales, gait_weights = _prior_tuples(priors, gait_weight)
+
+    def controller(generator, robot_state, scene, target_pos, target_spd, t_clips, u_warms,
+                   force_sel=-1, eps=None):
+        table = traversal_cuda.pack_boxes(_corridor_scene(
+            params, cfg, robot_state, scene, target_pos, target_spd, contact_k))
+        tl = _tl_single(robot_state)
+        u_execs, u_nexts, costs = [], [], []
+        for pi, cid in enumerate(clip_ids):
+            ref = rollout_tl.precompute_reference(model, clips, cid, t_clips[pi], cfg.horizon,
+                                                  policy_dt)
+            rows = rollout_cuda.pack_reference(ref)
+
+            def score(u_cand, rows=rows, w=prior_weights[pi], ss=spd_scales[pi],
+                      gw=gait_weights[pi]):
+                return traversal_cuda.rollout_traversal_fused(
+                    c, params, tl, u_cand, table, rows, target_pos, target_spd * ss,
+                    reward_type, max_steps, weights=w, gait_weight=gw)
+
+            u_opt, diag = mppi_tl.mppi_update(cfg, generator, u_warms[pi], score,
+                                              eps=None if eps is None else eps[pi])
+            u_execs.append((ref.target_joint[0, ..., 0, 0] + u_opt[0]).reshape(12))
+            u_nexts.append(torch.cat([u_opt[1:], u_opt[-1:]], dim=0))
+            costs.append(diag["weighted_cost"])
+        costs = torch.stack(costs)
+        sel = select_prior(costs, force_sel)
+        u_exec = torch.stack(u_execs).index_select(0, sel.reshape(1))[0]
+        return u_exec, torch.stack(u_nexts), sel, {"prior_costs": costs}
 
     return controller
 

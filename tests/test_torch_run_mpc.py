@@ -161,7 +161,10 @@ for m in ("envs.chase_tag", "scene.arena_gen", "scene.arena_fixed", "costs.chase
           "utils.trajectory", "solver.mppi", "solver.rollout", "models.layers", "models.params",
           "models.pmc", "models.epmc", "models.sepmc", "compat.tleague_import",
           "learning.registry", "bin.run_eval", "entry", "learning.ppo", "learning.replay",
-          "learning.learner", "learning.recurrent", "learning.freeze", "bin.run_learner"):
+          "learning.learner", "learning.recurrent", "learning.freeze", "bin.run_learner",
+          "robot.ik", "motion.bvh", "motion.retarget", "models.z_net", "learning.distill",
+          "utils.profiling", "tools.make_eval", "tools.debug_traversal",
+          "tools.distill_prior"):
     assert "lifelike_tpu_torch." + m in names, m
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
