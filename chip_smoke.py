@@ -83,7 +83,7 @@ result line:
      STEPS x 10 substeps; the plant's time per control step;
  10c. the MPPI->iLQR hybrid closed loops through bin/run_mpc --hybrid: PMC at
      bench.py bench_hybrid's width (population 1024, H 50, default plant,
-     n_refine 7 so S = 8, 2 iLQR iterations) for HYB_STEPS control steps, K1's
+     n_refine 7 so S = 8, 1 iLQR iteration) for HYB_STEPS control steps, K1's
      launches = solves and K6's = solves x iterations, the refined cost <=
      the best seed's + 1e-5 at every step; EPMC and SEPMC at H
      HYB_TASK_HORIZON for HYB_TASK_STEPS steps with 1 iteration (K2 / K3 /
@@ -204,6 +204,36 @@ result line:
      a window mined, resampled to 120 Hz, written as a clip and read back
      by motion_lib.load_clips; (f) utils.profiling.detect_chip names the
      card (the bounds of phase 11 read the same table's peaks);
+ 15. the multi-process layer (parallel/{mesh,distributed,sharded_solve}.py,
+     scenario_sweep.sharded_scenario_sweep, run_learner's data-parallel
+     path; no kernel of its own), in ranks started by
+     tools/launch_multihost.py on this card after the kernels are built
+     (`--multi-rank CASE DIR` is a rank's command): (a) one NCCL rank (a
+     group of one, asked for): the sharded solve through
+     make_sharded_solver at the PMC headline shape (population 4096, H 50,
+     substeps 10, mass_freeze 10, 1 iteration, float32) against
+     mppi_tl.mppi_step under the same normals, 2e-4; K1 launches = 1; (b)
+     two gloo ranks sharing the card (NCCL refuses two ranks on one
+     device), the same solve at 2 x 2048: the plan bitwise equal on both
+     ranks, within 2e-4 of (a)'s, K1 once per rank; ms per solve p50 / max
+     of MULTI_SOLVES chained solves per rank (CUDA events; the card
+     time-sliced between the ranks: recorded, not gated); (c) the sharded
+     sweep at bench_sweep's S 16 x 256, 8 scenario blocks per rank, each
+     rank's plans and costs within 2e-4 of the single-process tiled sweep
+     under the same per-scenario normals, K3 2 / K4 2 per rank, the
+     summary equal on both ranks and within 2e-4 of one process's; (d) the
+     sharded hybrid at bench_hybrid's population 1024, H
+     HYB_TASK_HORIZON, 1 MPPI and 1 iLQR iteration: K1 1 / K6 1 per
+     rank, u_best equal on both ranks, the refined cost <= the best seed's
+     + 1e-5; (e) bin/run_learner on two gloo ranks: PMC at phase 13's
+     widths (256 envs, 128 per rank) for MULTI_UPDATES updates with a
+     checkpoint per update (.r0, .r1, .step written) beside an
+     uninterrupted run of MULTI_UPDATES + 1, then the resume to
+     MULTI_UPDATES + 1 updates (it starts at update MULTI_UPDATES; that
+     update's loss within 1e-5 x max(1, |loss|) of the uninterrupted
+     run's, bitwise equality reported) beside one EPMC update (hurdles, from the pool
+     checkpoint); every update's metrics equal on both ranks; ms per
+     update (collection / optimisation) per rank;
 then one JSON line listing the six kernels, the nvidia-smi line, and last
 the result line {"ok": true, "device": {...}}. Needs one card; builds the
 kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
@@ -217,6 +247,11 @@ runs phase 13 alone and ends with one JSON line of its rows;
   python3 chip_smoke.py --eval
 
 runs phase 14 alone and ends with one JSON line of its rows.
+
+  python3 chip_smoke.py --multi
+
+builds K1, K3, K4 and K6, runs phase 15 alone and ends with one JSON line
+of its rows.
 
   python3 chip_smoke.py --timing [--root DIR] [--only Kn ...] [--group Kn=G ...]
                                 [--loop TASK ...]
@@ -300,12 +335,19 @@ LEARN_HANDOFF = {"epmc": "params/llc,params/prop_rms",
                      f"params/mlc_{k}=params/pi_{k}" for k in ("prop_embed", "cmd", "fc", "lstm")]
                      + ["params/z_out=params/z_out"])}
 # K6: the MPPI->iLQR hybrid at bench.py bench_hybrid's width (population
-# pop // 4 = 1024, H 50, n_refine 7: S = 8 scenarios) with run_mpc's default
-# 2 iLQR iterations; its PMC loop runs HYB_STEPS control steps, the EPMC and
-# SEPMC hybrid loops HYB_TASK_STEPS at horizon HYB_TASK_HORIZON, 1 iteration
-# (one step each since phase 14 came in: depth cut to fit the smoke).
-HYB_POP, HYB_REFINE, HYB_ITERS, HYB_STEPS = 1024, 7, 2, 1
+# pop // 4 = 1024, H 50, n_refine 7: S = 8 scenarios); its PMC loop runs
+# HYB_STEPS control steps, the EPMC and SEPMC hybrid loops HYB_TASK_STEPS at
+# horizon HYB_TASK_HORIZON. Depth cut to fit the smoke: one step each since
+# phase 14 came in, and 1 iLQR iteration (run_mpc's default is 2) since
+# phase 15 did.
+HYB_POP, HYB_REFINE, HYB_ITERS, HYB_STEPS = 1024, 7, 1, 1
 HYB_TASK_HORIZON, HYB_TASK_STEPS = 5, 1
+# phase 15: the multi-process layer on the one card; MULTI_SOLVES chained
+# sharded solves timed per rank; run_learner's PMC run checkpoints after
+# MULTI_UPDATES updates and resumes to MULTI_UPDATES + 1 (depth cut from 2
+# and 3); every launch of ranks is killed after MULTI_TIMEOUT_S, and a
+# collective waits that long at most
+MULTI_SOLVES, MULTI_SEED, MULTI_TIMEOUT_S, MULTI_UPDATES = 10, 15, 300, 1
 RICCATI_N, RICCATI_M, RICCATI_S = 37, 12, HYB_REFINE + 1
 # operations and float32 bytes of one Riccati step of one scenario, printed
 # by tools/kernel_op_counts.py (the Pallas kernel's _backward_step traced at
@@ -2471,6 +2513,371 @@ def run_task_evals(fns, smi):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the multi-process layer (parallel/, torch.distributed) on the one
+# card, in subprocesses started by tools/launch_multihost.py
+# ---------------------------------------------------------------------------
+
+
+def multi_inputs(dev, pop, horizon, iterations=1):
+    """(model, clips, plant, constants, start state, MPPI config, t0) of the
+    PMC headline solve (substeps 10, mass_freeze 10, synthetic clip, the
+    robot standing), float32, on `dev`."""
+    import torch
+
+    from lifelike_tpu_torch.motion import motion_lib
+    from lifelike_tpu_torch.physics import batched as B
+    from lifelike_tpu_torch.physics import engine
+    from lifelike_tpu_torch.robot.model import build_max_model
+    from lifelike_tpu_torch.solver.mppi import MPPIConfig
+    from lifelike_tpu_torch.tools.multihost_worker import standing_tl
+
+    model = build_max_model()
+    clips = motion_lib.pack_clips([motion_lib.make_synthetic_clip(int(120 * (horizon / 50 + 3)))],
+                                  frame_step=1.0 / 120.0, device=dev)
+    params = engine.PhysicsParams(substeps=SUBSTEPS, mass_freeze=SUBSTEPS)
+    c = B.tl_constants(model, dtype=torch.float32, device=dev)
+    cfg = MPPIConfig(horizon=horizon, population=pop, iterations=iterations)
+    return model, clips, params, c, standing_tl(torch.float32, dev), cfg, 0.2
+
+
+def _counts(fns):
+    return {k: f.launches for k, f in fns.items()}
+
+
+def _launched(fns, before):
+    return {k: f.launches - before[k] for k, f in fns.items()}
+
+
+def multi_solve(mesh, fns, world_one):
+    """Phase 15a / 15b on this rank: one sharded solve at the headline shape
+    under the global normals of seed MULTI_SEED (this rank's rows), its K1
+    launches, then MULTI_SOLVES chained solves on generator noise timed
+    with CUDA events; world_one: also hold it to mppi_tl.mppi_step on the
+    same normals (phase 15a)."""
+    import torch
+
+    from lifelike_tpu_torch.parallel import mesh as meshlib
+    from lifelike_tpu_torch.parallel import distributed, sharded_solve
+    from lifelike_tpu_torch.solver import mppi_tl, rollout_tl
+
+    dev = mesh.device
+    model, clips, params, c, tl, cfg, t0 = multi_inputs(dev, POP, HORIZON)
+    g = torch.Generator(device=dev).manual_seed(MULTI_SEED)
+    eps_all = [torch.randn((HORIZON, 4, 3, POP // 128, 128), generator=g, device=dev)]
+    eps = [meshlib.shard_batch(mesh, e, axis=3).contiguous() for e in eps_all]
+    solve = sharded_solve.make_sharded_solver(mesh, model, c, params, clips, cfg)
+    u0 = torch.zeros((HORIZON, 4, 3), device=dev)
+    before = _counts(fns)
+    u, diag = solve(None, tl, u0, 0, t0, eps=eps)
+    torch.cuda.synchronize()
+    out = {"u": u.cpu(), "best_cost": float(diag["best_cost"]), "launches": _launched(fns, before),
+           "layout": sharded_solve.local_layout(mesh, POP)}
+    if world_one:
+        ref = rollout_tl.precompute_reference(model, clips, 0, t0, HORIZON,
+                                              params.dt * params.substeps)
+        u_ref, _ = mppi_tl.mppi_step(c, params, cfg, None, tl, u0, ref, eps=eps_all)
+        out["err_vs_mppi_step"] = report_diff(
+            f"multi (a) sharded solve, 1 NCCL rank, vs mppi_tl.mppi_step pop {POP} H {HORIZON} "
+            "f32 plan", u, u_ref, 2e-4)
+    gen = distributed.rank_generator(MULTI_SEED, mesh)
+    ms, u_w = [], u0
+    for _ in range(MULTI_SOLVES + 1):  # the first is a warm-up
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        u_w, _ = solve(gen, tl, u_w, 0, t0)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    out["ms"] = ms[1:]
+    return out
+
+
+def multi_sweep(mesh, fns):
+    """Phase 15c on this rank: sharded_scenario_sweep at bench_sweep's S 16 x
+    256 (S / W scenario blocks per rank), held to the single-process tiled
+    sweep of all 16 scenarios under the same per-scenario normals (its
+    launches not counted), and one sharded round's K3 / K4 launches and ms."""
+    import torch
+
+    from lifelike_tpu_torch.parallel import mesh as meshlib
+    from lifelike_tpu_torch.parallel import scenario_sweep
+
+    c, params, cfg, scen, _ = sweep_inputs(SWEEP_POPS[0], n_scen=SWEEP_S, horizon=HORIZON,
+                                           device=mesh.device)
+    eps = scenario_sweep.scenario_noise(MULTI_SEED, cfg, range(SWEEP_S), 1, torch.float32,
+                                        scen.flag_pos.device)
+    u_all, cost_all = scenario_sweep.sweep_scenarios_tiled(c, params, cfg, None, scen, eps=eps,
+                                                           device=mesh.device)
+    rows = meshlib.shard_rows(mesh, SWEEP_S)
+    before = _counts(fns)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    u, cost, summary = scenario_sweep.sharded_scenario_sweep(mesh, c, params, cfg, MULTI_SEED,
+                                                             scen, device=mesh.device)
+    e1.record()
+    e1.synchronize()
+    launches = _launched(fns, before)
+    label = f"multi (c) rank {mesh.rank} sharded sweep S {SWEEP_S} pop {cfg.population} f32"
+    err = max(report_diff(f"{label} best cost vs one process", cost, cost_all[rows], 2e-4),
+              report_diff(f"{label} plans vs one process", u, u_all[rows], 2e-4))
+    return {"launches": launches, "ms": e0.elapsed_time(e1), "err": err,
+            "summary": {k: float(v) for k, v in summary.items()},
+            "summary_one": {"mean_cost": float(cost_all.mean()), "min_cost": float(cost_all.min())}}
+
+
+def multi_hybrid(mesh, fns):
+    """Phase 15d on this rank: one sharded hybrid solve (bench_hybrid's
+    population, H HYB_TASK_HORIZON, 1 MPPI and 1 iLQR iteration)."""
+    import torch
+
+    from lifelike_tpu_torch.parallel import distributed, sharded_solve
+    from lifelike_tpu_torch.solver import ilqr, rollout_tl
+
+    model, clips, params, c, tl, cfg, t0 = multi_inputs(mesh.device, HYB_POP, HYB_TASK_HORIZON)
+    ref = rollout_tl.precompute_reference(model, clips, 0, t0, cfg.horizon,
+                                          params.dt * params.substeps)
+    u0 = torch.zeros((cfg.horizon, 4, 3), device=mesh.device)
+    before = _counts(fns)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    u, diag = sharded_solve.sharded_hybrid_step(
+        mesh, model, c, params, clips, cfg, ilqr.ILQRConfig(iterations=1),
+        distributed.rank_generator(MULTI_SEED, mesh), tl, u0, 0, t0, ref)
+    e1.record()
+    e1.synchronize()
+    return {"u": u.cpu(), "launches": _launched(fns, before), "ms": e0.elapsed_time(e1),
+            **{k: float(v) for k, v in diag.items()}}
+
+
+def multi_rank(case, out_dir):
+    """One rank of phase 15 (`chip_smoke.py --multi-rank CASE DIR`, started
+    by run_multi): "nccl" runs 15a, "shared" 15b-d; writes its results to
+    DIR/CASE_rank{r}.pt."""
+    import torch
+
+    from lifelike_tpu_torch.ops import rollout_cuda
+    from lifelike_tpu_torch.ops import traversal_cuda as tc
+    from lifelike_tpu_torch.parallel import distributed
+    from lifelike_tpu_torch.solver import riccati_cuda
+
+    fns = {"K1": rollout_cuda.rollout_tracking_fused, "K3": tc.rollout_plan_fused,
+           "K4": tc.rollout_chase_fused, "K6": riccati_cuda.riccati_sweep}
+    distributed.initialize(timeout_s=MULTI_TIMEOUT_S)
+    try:
+        mesh = distributed.global_mesh()
+        out = {"world": mesh.world, "backend": mesh.backend, "device": str(mesh.device),
+               "solve": multi_solve(mesh, fns, world_one=case == "nccl")}
+        if case == "shared":
+            out["sweep"] = multi_sweep(mesh, fns)
+            out["hybrid"] = multi_hybrid(mesh, fns)
+        torch.save(out, os.path.join(out_dir, f"{case}_rank{mesh.rank}.pt"))
+    finally:
+        distributed.destroy()
+    return 0
+
+
+def _ranks(name, cmd, n, backend, log_dir):
+    """Launch `cmd` as n ranks; exits with the ranks' log tails unless all
+    exit 0. Returns each rank's log."""
+    from lifelike_tpu_torch.tools import launch_multihost
+
+    logs = os.path.join(log_dir, name.replace(" ", "_"))
+    t0 = time.perf_counter()
+    rcs = launch_multihost.launch(cmd, n, backend=backend, log_dir=logs,
+                                  timeout=MULTI_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(
+                                      __file__)))
+    text = [open(os.path.join(logs, f"rank{r}.log")).read() for r in range(n)]
+    say(f"multi {name}: {n} rank(s), backend {backend}, exit codes {rcs}, "
+        f"{time.perf_counter() - t0:.1f} s of wall time")
+    for r, t in enumerate(text):  # the ranks' own check lines
+        for line in t.splitlines():
+            if line.startswith("multi ("):
+                say(f"[rank {r}] {line}")
+    if any(rcs):
+        for r, t in enumerate(text):
+            say(f"--- rank {r} log (tail) ---\n{t[-3000:]}")
+        raise SystemExit(f"multi {name}: a rank failed ({rcs})")
+    return text
+
+
+_UPDATE = r"^update (\d+): (\{.*?\}) \| env steps/s \S+ \| ms per update: collection (\S+), " \
+          r"optimisation (\S+)$"
+
+
+def _updates(text):
+    """{update: (metrics, collection ms, optimisation ms)} of a run_learner log."""
+    import ast
+    import re
+
+    return {int(m[0]): (ast.literal_eval(m[1]), float(m[2]), float(m[3]))
+            for m in re.findall(_UPDATE, text, re.M)}
+
+
+def multi_learners(d, smi, device="cuda"):
+    """Phase 15e: bin/run_learner data-parallel on two gloo ranks sharing the
+    card: PMC at 256 envs (128 per rank) for MULTI_UPDATES updates with a
+    checkpoint per update beside an uninterrupted run of one update more,
+    then the resume to that many updates beside one EPMC update."""
+    import concurrent.futures
+
+    flags = _learner_flags(d)
+    base = [sys.executable, "-m", "lifelike_tpu_torch.bin.run_learner", f"--device={device}",
+            "--seed=0", "--log_interval=1", "--pub_interval=1"]
+    pmc = base + ["--task=pmc"] + [f for f in flags["pmc"] if "--model_pool_dir" not in f]
+    ckpt = os.path.join(d, "multi_train.ckpt")
+    saving = [f"--train_checkpoint={ckpt}", "--save_interval=1"]
+    epmc = base + ["--task=epmc", "--total_updates=1"] + [
+        f for f in flags["epmc"] if "--model_pool_dir" not in f]
+    n, k_saved, k_straight = MULTI_UPDATES, f"learner pmc {MULTI_UPDATES} updates", \
+        f"learner pmc {MULTI_UPDATES + 1} updates"
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = {k_saved: pool.submit(_ranks, k_saved, pmc + [f"--total_updates={n}"] + saving, 2,
+                                     "gloo", d),
+                k_straight: pool.submit(_ranks, k_straight, pmc + [f"--total_updates={n + 1}"], 2,
+                                        "gloo", d)}
+        text = {k: v.result() for k, v in runs.items()}
+        runs = {"learner pmc resumed": pool.submit(
+                    _ranks, "learner pmc resumed", pmc + [f"--total_updates={n + 1}"] + saving, 2,
+                    "gloo", d),
+                "learner epmc 1 update": pool.submit(
+                    _ranks, "learner epmc 1 update", epmc, 2, "gloo", d)}
+        text.update({k: v.result() for k, v in runs.items()})
+    ups = {k: [_updates(t) for t in v] for k, v in text.items()}
+    for k, want in ((k_saved, list(range(n))), (k_straight, list(range(n + 1))),
+                    ("learner pmc resumed", [n]), ("learner epmc 1 update", [0])):
+        r0, r1 = ups[k]
+        if sorted(r0) != want or sorted(r1) != want:
+            raise SystemExit(f"multi {k}: updates {sorted(r0)} / {sorted(r1)}, expected {want}")
+        for i in want:
+            m0, m1 = r0[i][0], r1[i][0]
+            if m0 != m1 or not all(math.isfinite(v) for v in m0.values()):
+                raise SystemExit(f"multi {k}: update {i} metrics differ across the ranks or are "
+                                 f"not finite: {m0} / {m1}")
+    for suffix in (".r0", ".r1", ".step"):
+        if not os.path.exists(ckpt + suffix):
+            raise SystemExit(f"multi learner: {ckpt + suffix} not written")
+    if not all(f"resumed {ckpt} at update {n}" in t for t in text["learner pmc resumed"]):
+        raise SystemExit(f"multi learner: the resume did not start at update {n}")
+    got = ups["learner pmc resumed"][0][n][0]["loss"]
+    want = ups[k_straight][0][n][0]["loss"]
+    diff = abs(got - want)
+    same = "; bitwise equal" if got == want else ""
+    say(f"multi (e) learner pmc resume: update {n} loss {got!r} resumed vs {want!r} "
+        f"uninterrupted, |diff| {diff:.3e} (gate {TRAIN_TOL:g} x max(1, |loss|){same})")
+    if diff > TRAIN_TOL * max(1.0, abs(want)):
+        raise SystemExit(f"multi learner: the resumed update {n} differs from the uninterrupted "
+                         "run")
+    rows = {}
+    for k, per in ups.items():
+        rows[k] = [{i: {"loss": m["loss"], "collect_ms": cm, "optimize_ms": om}
+                    for i, (m, cm, om) in sorted(r.items())} for r in per]
+        say(f"multi (e) {k} [{smi}]: " + "; ".join(
+            f"rank {r}: " + ", ".join(f"update {i} loss {v['loss']:.6f} collection "
+                                      f"{v['collect_ms']:.1f} ms optimisation "
+                                      f"{v['optimize_ms']:.1f} ms" for i, v in rr.items())
+            for r, rr in enumerate(rows[k])) + " (CUDA events per rank; the card and the host "
+            "are shared by the ranks)")
+    return rows
+
+
+def run_multi(smi, rank_cmd=None, learner_device="cuda"):
+    """Phase 15 (see the module's docstring), the kernels built by this
+    process before. rank_cmd: the command of a rank of 15a-d, to which the
+    case and a directory are appended (default: this script with
+    --multi-rank). Returns its rows."""
+    import tempfile
+
+    import torch
+
+    t15 = time.perf_counter()
+    rank_cmd = rank_cmd or [sys.executable, os.path.abspath(__file__), "--multi-rank"]
+    rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        _ranks("(a) one NCCL rank", rank_cmd + ["nccl", d], 1, "nccl", d)
+        _ranks("(b-d) two gloo ranks sharing the card", rank_cmd + ["shared", d], 2, "gloo", d)
+        a = torch.load(os.path.join(d, "nccl_rank0.pt"), weights_only=False)
+        s = [torch.load(os.path.join(d, f"shared_rank{r}.pt"), weights_only=False)
+             for r in (0, 1)]
+        # (a)
+        if a["solve"]["launches"] != {"K1": 1, "K3": 0, "K4": 0, "K6": 0}:
+            raise SystemExit(f"multi (a): launches {a['solve']['launches']}, expected K1 1")
+        # (b)
+        if not torch.equal(s[0]["solve"]["u"], s[1]["solve"]["u"]):
+            raise SystemExit("multi (b): the plan differs across the ranks")
+        err_b = report_diff(f"multi (b) 2 gloo ranks x {POP // 2} vs 1 NCCL rank x {POP} plan",
+                            s[0]["solve"]["u"], a["solve"]["u"], 2e-4)
+        for r in (0, 1):
+            if s[r]["solve"]["launches"] != {"K1": 1, "K3": 0, "K4": 0, "K6": 0}:
+                raise SystemExit(f"multi (b) rank {r}: launches {s[r]['solve']['launches']}")
+        for name, out in (("(a) 1 NCCL rank", [a]), ("(b) 2 gloo ranks", s)):
+            say(f"multi {name} solve pop {POP} H {HORIZON} [{smi}]: " + "; ".join(
+                f"rank {r} layout {o['solve']['layout']} ms per solve p50 "
+                f"{statistics.median(o['solve']['ms']):.3f} max {max(o['solve']['ms']):.3f}"
+                for r, o in enumerate(out)) + f" ({MULTI_SOLVES} chained solves, CUDA events"
+                + ("; the card is time-sliced between the ranks)" if len(out) > 1 else ")"))
+        # (c)
+        for r in (0, 1):
+            if s[r]["sweep"]["launches"] != {"K1": 0, "K3": 2, "K4": 2, "K6": 0}:
+                raise SystemExit(f"multi (c) rank {r}: launches {s[r]['sweep']['launches']}")
+        if s[0]["sweep"]["summary"] != s[1]["sweep"]["summary"]:
+            raise SystemExit("multi (c): the summary differs across the ranks")
+        for k in ("mean_cost", "min_cost"):
+            got, want = s[0]["sweep"]["summary"][k], s[0]["sweep"]["summary_one"][k]
+            if abs(got - want) > 2e-4 * (1 + abs(want)):
+                raise SystemExit(f"multi (c): {k} {got} vs one process {want}")
+        say(f"multi (c) sharded sweep S {SWEEP_S} x {SWEEP_POPS[0]}, {SWEEP_S // 2} blocks per "
+            f"rank: summary "
+            f"{s[0]['sweep']['summary']} (one process {s[0]['sweep']['summary_one']}) | ms per "
+            f"round rank 0 {s[0]['sweep']['ms']:.3f}, rank 1 {s[1]['sweep']['ms']:.3f} [{smi}]")
+        # (d)
+        h = [o["hybrid"] for o in s]
+        if not torch.equal(h[0]["u"], h[1]["u"]):
+            raise SystemExit("multi (d): u_best differs across the ranks")
+        for r in (0, 1):
+            if h[r]["launches"] != {"K1": 1, "K3": 0, "K4": 0, "K6": 1}:
+                raise SystemExit(f"multi (d) rank {r}: launches {h[r]['launches']}")
+        if not h[0]["refined_cost"] <= h[0]["seed_cost"] + 1e-5:
+            raise SystemExit(f"multi (d): refined {h[0]['refined_cost']} above the best seed's "
+                             f"{h[0]['seed_cost']}")
+        say(f"multi (d) sharded hybrid pop {HYB_POP} H {HYB_TASK_HORIZON}: refined "
+            f"{h[0]['refined_cost']:.6f} <= best seed {h[0]['seed_cost']:.6f} + 1e-5 | ms per "
+            f"solve rank 0 {h[0]['ms']:.1f}, rank 1 {h[1]['ms']:.1f} [{smi}]")
+        rows.update(a=a["solve"]["ms"], b=[o["solve"]["ms"] for o in s], err_b=err_b,
+                    err_a=a["solve"]["err_vs_mppi_step"],
+                    c=[o["sweep"]["ms"] for o in s], d=[x["ms"] for x in h],
+                    launches={"a": a["solve"]["launches"],
+                              "b-d": [{p: o[p]["launches"] for p in ("solve", "sweep", "hybrid")}
+                                      for o in s]})
+        rows["e"] = multi_learners(d, smi, learner_device)
+    say(f"phase 15: {time.perf_counter() - t15:.1f} s")
+    return rows
+
+
+def multi_mode():
+    """The --multi mode: phase 15 alone, then one JSON line of its rows."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs one NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from lifelike_tpu_torch.ops import cuda_build, rollout_cuda
+    from lifelike_tpu_torch.ops import traversal_cuda as tc
+    from lifelike_tpu_torch.solver import riccati_cuda
+
+    smi = nvidia_smi()
+    say(f"multi: {torch.cuda.get_device_name(0)} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | nvidia-smi: {smi}")
+    t0 = time.perf_counter()
+    cuda_build.build_all([rollout_cuda.KERNEL, tc.PLAN_KERNEL, tc.CHASE_KERNEL,
+                          riccati_cuda.KERNEL])
+    say(f"build: K1, K3, K4, K6 in {time.perf_counter() - t0:.1f} s wall")
+    rows = run_multi(smi)
+    say(json.dumps({"smi": smi, "rows": rows}, default=str))
+    return 0
+
+
 def peaks():
     """The H100 SXM's published peaks (utils.profiling.H100_SXM: FP32 / FP64
     outside the tensor cores, HBM3 bytes/s, at its 700 W limit), the one
@@ -2811,6 +3218,9 @@ def main():
     run_task_evals(fns, smi)
     say(f"phase 14: {time.perf_counter() - t14:.1f} s")
 
+    # 15. the multi-process layer: ranks on this card, the kernels built above
+    run_multi(smi)
+
     say(json.dumps({"kernels": [
         dict(name=KERNELS[k]["name"], route="cuda", source=KERNELS[k]["source"],
              replaces=KERNELS[k]["replaces"], launches=launches[k], max_abs_err=err[k],
@@ -2991,6 +3401,10 @@ def eval_mode():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multi-rank"]:
+        sys.exit(multi_rank(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--multi"]:
+        sys.exit(multi_mode())
     if sys.argv[1:2] == ["--timing"]:
         sys.exit(timing_mode(sys.argv[2:]))
     if sys.argv[1:2] == ["--learner"]:

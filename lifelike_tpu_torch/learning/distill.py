@@ -13,7 +13,10 @@ Distill loss modes match the reference z_mlp 'distill' family (:167-191):
   'supervised' — plain MSE to the teacher action
 
 The optimizer is learning.learner.ClipAdam (optax's clip_by_global_norm +
-adam, written out); a step updates the student in place.
+adam, written out); a step updates the student in place. With `group` (a
+parallel.mesh.Mesh) a step is data-parallel as learning/learner.py's are:
+the gradients (and the metrics) are averaged over the ranks before the
+clip, the RMS batch statistics are the global batch's.
 """
 import math
 from typing import NamedTuple
@@ -80,18 +83,21 @@ def make_distill_optimizer(cfg: DistillConfig, net):
 
 
 @layers.full_fp32()
-def znet_distill_step(znet, cfg: DistillConfig, optimizer, batch, generator=None, eps=None):
+def znet_distill_step(znet, cfg: DistillConfig, optimizer, batch, generator=None, eps=None,
+                      group=None):
     """One supervised update of a ZNet on teacher rollout data, in place.
 
     batch: dict with obs (T, B, D), teacher_mean / teacher_logstd (T, B, 12)
     or teacher_action, masks (T, B), z_init (B, z_len). The latent normals
     come from `generator` or `eps` (see ZNet.forward). Returns the metrics
     (distill_loss, prior_loss, rms_loss, loss; detached)."""
-    out = znet(batch["obs"], batch["z_init"], batch["masks"], generator=generator, eps=eps)
+    with layers.batch_group(group):
+        out = znet(batch["obs"], batch["z_init"], batch["masks"], generator=generator, eps=eps)
     d = distill_loss(cfg, out.mean, out.logstd,
                      batch.get("teacher_mean", batch.get("teacher_action")),
                      batch.get("teacher_logstd"), batch.get("teacher_action"))
     prior = ar1_prior_loss(znet.cfg, out)
     loss = d + cfg.beta * prior + out.rms_loss
     return learner.apply_gradients(
-        optimizer, loss, {"distill_loss": d, "prior_loss": prior, "rms_loss": out.rms_loss})
+        optimizer, loss, {"distill_loss": d, "prior_loss": prior, "rms_loss": out.rms_loss},
+        group)

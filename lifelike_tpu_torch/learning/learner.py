@@ -15,6 +15,17 @@ The train step runs at full float32 precision: forward, backward and the
 optimizer step inside layers.full_fp32(), so no convolution or matmul of
 the backward pass runs in TF32 (the JAX learner trains at
 jax_default_matmul_precision="highest").
+
+Data-parallel training: every step function takes `group`, a
+parallel.mesh.Mesh whose ranks each hold a local batch of the same size.
+The step then computes what the JAX package's one global jit computes on
+the concatenated global batch: the batch statistics a loss reads (the
+advantage normalization, the RMS layers' batch mean / std, the VQ
+perplexity) are over every rank (layers.batch_group), the gradients are
+averaged over the ranks before ClipAdam's global-norm clip (as the JAX
+package's pmean sits before optax), the metrics are averaged, and the
+clip statistics and code counts of the unrolls are summed. The parameters
+then stay bitwise equal on every rank.
 """
 from typing import NamedTuple
 
@@ -24,6 +35,7 @@ from lifelike_tpu_torch.envs import primitive
 from lifelike_tpu_torch.learning import freeze, ppo
 from lifelike_tpu_torch.learning import replay as rp
 from lifelike_tpu_torch.models import layers
+from lifelike_tpu_torch.parallel import distributed
 
 
 class PPOConfig(NamedTuple):
@@ -108,8 +120,12 @@ class ClipAdam:
         return [x.view_as(p) for x, p in zip(flat.split(self.numel), self.params)]
 
     @torch.no_grad()
-    def step(self):
+    def step(self, group=None):
+        """One update; with `group` (a parallel.mesh.Mesh) the gradients are
+        first averaged over its ranks (one collective)."""
         g = self.flat_grad()
+        if group is not None:
+            g = distributed.all_mean(g, group)
         norm = torch.sqrt(torch.sum(g * g))
         g = torch.where(norm < self.max_norm, g, g / norm * self.max_norm)
         self.exp_avg.mul_(self.b1).add_(g * (1.0 - self.b1))
@@ -189,13 +205,13 @@ def collect_rollout(net, model, clips, env_cfg, cfg: PPOConfig, env_state, gener
     return env_state, rp.tree_stack(steps), (reward_sum, ep_count, code_counts.float())
 
 
-def ppo_loss_fn(net, cfg: PPOConfig, rollout: Rollout):
+def ppo_loss_fn(net, cfg: PPOConfig, rollout: Rollout, group=None):
     out = net(rollout.prop, rollout.prop_a, rollout.future)
     neglogp = layers.gaussian_neglogp(out.mean, out.logstd, rollout.action)
     vpred = out.value[..., 0]  # (T, B)
     pg_loss, value_loss, mean_return = ppo.ppo2_loss(
         neglogp, rollout.neglogp, vpred, rollout.reward, rollout.discount, lam=cfg.lam,
-        clip_range=cfg.clip_range, clip_range_lower=cfg.clip_range_lower)
+        clip_range=cfg.clip_range, clip_range_lower=cfg.clip_range_lower, group=group)
     entropy = torch.mean(layers.gaussian_entropy(out.logstd))
     loss = (pg_loss + cfg.vf_coef * value_loss - cfg.ent_coef * entropy
             + cfg.q_latent_coef * out.q_latent_loss + cfg.e_latent_coef * out.e_latent_loss
@@ -214,36 +230,43 @@ def ppo_loss_fn(net, cfg: PPOConfig, rollout: Rollout):
     return loss, metrics
 
 
-def apply_gradients(optimizer, loss, metrics):
-    """backward, then the optimizer step; metrics (detached) + "loss"."""
+def apply_gradients(optimizer, loss, metrics, group=None):
+    """backward, then the optimizer step; metrics (detached) + "loss". With
+    `group` the gradients and the metrics are averaged over its ranks."""
     optimizer.zero_grad()
     loss.backward()
-    optimizer.step()
+    optimizer.step(group)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["loss"] = loss.detach()
+    if group is not None:
+        metrics = distributed.mean_tree(metrics, group)
     return metrics
 
 
 @layers.full_fp32()
-def train_step(net, optimizer, cfg: PPOConfig, rollout: Rollout):
+def train_step(net, optimizer, cfg: PPOConfig, rollout: Rollout, group=None):
     """One PPO update of `net` in place; returns the metrics (device
     tensors). The gradients stay in the parameters' .grad until the next
-    step."""
-    loss, metrics = ppo_loss_fn(net, cfg, rollout)
-    return apply_gradients(optimizer, loss, metrics)
+    step (this rank's own, before the average). `group`: see the module's
+    docstring."""
+    with layers.batch_group(group):
+        loss, metrics = ppo_loss_fn(net, cfg, rollout, group)
+    return apply_gradients(optimizer, loss, metrics, group)
 
 
 def learner_step(net, model, clips, env_cfg, cfg: PPOConfig, optimizer, env_state, generator,
-                 clip_probs=None, timer=None):
+                 clip_probs=None, timer=None, group=None):
     """Collect one unroll and apply one PPO update. clip_stats (per-clip
     reward sums / episode counts, code counts) ride along in the metrics
-    for host-side prioritized resampling. `timer.mark()` (when given) is
-    called between collection and the update. Returns (env_state',
-    metrics)."""
+    for host-side prioritized resampling (summed over the ranks of
+    `group`). `timer.mark()` (when given) is called between collection
+    and the update. Returns (env_state', metrics)."""
     env_state, rollout, clip_stats = collect_rollout(net, model, clips, env_cfg, cfg, env_state,
                                                      generator, clip_probs)
     mark(timer)
-    metrics = train_step(net, optimizer, cfg, rollout)
+    metrics = train_step(net, optimizer, cfg, rollout, group)
+    if group is not None:
+        clip_stats = distributed.sum_tree(clip_stats, group)
     metrics["clip_reward_sum"], metrics["clip_ep_count"], metrics["code_counts"] = clip_stats
     return env_state, metrics
 

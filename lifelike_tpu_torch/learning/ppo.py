@@ -5,20 +5,23 @@ tpolicies tp_losses.ppo_loss / ppo2_loss, reference pmc_net.py:183-240):
 
   * advantage normalization by the population statistics of the batch,
     std = sqrt(max(E[x^2] - E[x]^2, 0)) + 1e-8, as the JAX package
-    computes it
+    computes it; with `group` (a parallel.mesh.Mesh) E[x] and E[x^2] are
+    averaged over its ranks (the JAX package's `axis_name` pmean), which
+    for equal local batches are the global batch's
   * double-sided clipping with clip_range / clip_range_lower
   * TD-lambda returns by a reverse loop over the rollout axis (the JAX
     package's reverse lax.scan)
-
-The JAX package's `axis_name` (a pmean of the statistics over a mesh axis)
-has no counterpart here: the learner runs on one device.
 """
 import torch
 
+from lifelike_tpu_torch.parallel import distributed
 
-def _normalize_adv(adv):
+
+def _normalize_adv(adv, group=None):
     mean = torch.mean(adv)
     msq = torch.mean(adv ** 2)
+    if group is not None:
+        mean, msq = distributed.all_mean(torch.stack([mean, msq]), group)
     std = torch.sqrt(torch.clamp_min(msq - mean ** 2, 0.0))
     return (adv - mean) / (std + 1e-8)
 
@@ -31,7 +34,7 @@ def ppo_surrogate(neglogp, oldneglogp, adv, clip_range, clip_range_lower=None):
 
 
 def ppo_loss(neglogp, oldneglogp, vpred, R, V, clip_range=0.1, clip_range_lower=0.1,
-             adv_normalize=True):
+             adv_normalize=True, group=None):
     """Classic PPO with actor-computed returns (reference 'rl'/'ppo' path).
 
     R: returns, V: behavior values (both (..., n_v)); advantage = R - V summed
@@ -39,7 +42,7 @@ def ppo_loss(neglogp, oldneglogp, vpred, R, V, clip_range=0.1, clip_range_lower=
     """
     adv = torch.sum(R - V, dim=-1)
     if adv_normalize:
-        adv = _normalize_adv(adv)
+        adv = _normalize_adv(adv, group)
     pg = torch.mean(ppo_surrogate(neglogp, oldneglogp, adv, clip_range, clip_range_lower))
     value_loss = torch.mean(0.5 * (R - vpred) ** 2)
     return pg, value_loss
@@ -61,7 +64,7 @@ def lambda_return(reward, discount, vpred_next, lam):
 
 
 def ppo2_loss(neglogp, oldneglogp, vpred, reward, discount, lam=0.95, clip_range=0.1,
-              clip_range_lower=0.1, adv_normalize=True, mask=None):
+              clip_range_lower=0.1, adv_normalize=True, mask=None, group=None):
     """TD-lambda PPO on (T, B) rollout tensors (reference 'ppo2' path).
 
     vpred: (T, B) value predictions. Uses steps [0, T-1) with the off-by-one
@@ -72,7 +75,7 @@ def ppo2_loss(neglogp, oldneglogp, vpred, reward, discount, lam=0.95, clip_range
     R = lambda_return(reward[:-1], discount[:-1], vpred[1:], lam).detach()
     adv = R - vpred[:-1].detach()
     if adv_normalize:
-        adv = _normalize_adv(adv)
+        adv = _normalize_adv(adv, group)
     pg = ppo_surrogate(neglogp[:-1], oldneglogp[:-1], adv, clip_range, clip_range_lower)
     if mask is not None:
         pg = pg * mask[:-1]

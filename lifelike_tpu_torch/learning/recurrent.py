@@ -20,6 +20,11 @@ a torch.Generator and modules: `net` is trained in place; the SEPMC
 opponent is a second module holding the frozen opponent's weights. Every
 train step runs inside layers.full_fp32() (no TF32 in the backward).
 
+Every train and learner step takes `group` (a parallel.mesh.Mesh) for
+data-parallel training, as learning/learner.py's do; the replay windows
+stay rank-local, and the SEPMC learner's return is averaged and its game
+outcomes summed over the ranks, so every rank's league sees the same.
+
 One deliberate difference: `_agent_obs` slices the agent axis of every
 Chase Tag observation leaf. The JAX package's `x[..., i, :]` slices the
 first row of the (..., 2, 25, 13) height maps instead, which hands its
@@ -34,6 +39,7 @@ from lifelike_tpu_torch.learning import ppo
 from lifelike_tpu_torch.learning import replay as rp
 from lifelike_tpu_torch.learning.learner import PPOConfig, apply_gradients, mark
 from lifelike_tpu_torch.models import layers
+from lifelike_tpu_torch.parallel import distributed
 
 
 class RecurrentRollout(NamedTuple):
@@ -113,12 +119,12 @@ def _train_slice(roll: RecurrentRollout, burn_in):
                             for f in ("a_z", "a_llc", "a_hlc", "neglogp", "reward", "discount")})
 
 
-def _ppo_terms(cfg, neglogp, vpred, ents, rms_losses, tr):
+def _ppo_terms(cfg, neglogp, vpred, ents, rms_losses, tr, group=None):
     entropy = torch.mean(ents)
     rms_loss = torch.mean(rms_losses)
     pg_loss, value_loss, mean_return = ppo.ppo2_loss(
         neglogp, tr.neglogp, vpred, tr.reward, tr.discount, lam=cfg.lam,
-        clip_range=cfg.clip_range, clip_range_lower=cfg.clip_range_lower)
+        clip_range=cfg.clip_range, clip_range_lower=cfg.clip_range_lower, group=group)
     loss = (pg_loss + cfg.vf_coef * value_loss - cfg.ent_coef * entropy
             + cfg.rms_loss_coef * rms_loss)
     metrics = {"pg_loss": pg_loss, "value_loss": value_loss, "entropy": entropy,
@@ -127,7 +133,7 @@ def _ppo_terms(cfg, neglogp, vpred, ents, rms_losses, tr):
     return loss, metrics
 
 
-def epmc_loss_fn(net, cfg: PPOConfig, roll: RecurrentRollout, burn_in=0):
+def epmc_loss_fn(net, cfg: PPOConfig, roll: RecurrentRollout, burn_in=0, group=None):
     """Replay the unroll through the net and compute the TD-lambda PPO loss
     with per-head entropy on the post-burn-in steps; the sampled codebook
     indices are injected (EPMCNet's z_idx=)."""
@@ -142,14 +148,15 @@ def epmc_loss_fn(net, cfg: PPOConfig, roll: RecurrentRollout, burn_in=0):
 
     inputs = (roll.obs, roll.mask, roll.a_z, roll.a_llc)
     neglogp, vpred, ents, rms_losses = _replay_net(step, roll.hs[0], inputs, burn_in)
-    return _ppo_terms(cfg, neglogp, vpred, ents, rms_losses, _train_slice(roll, burn_in))
+    return _ppo_terms(cfg, neglogp, vpred, ents, rms_losses, _train_slice(roll, burn_in), group)
 
 
 @layers.full_fp32()
-def epmc_train_step(net, optimizer, cfg: PPOConfig, roll, burn_in=0):
+def epmc_train_step(net, optimizer, cfg: PPOConfig, roll, burn_in=0, group=None):
     """One recurrent PPO update of the EPMC net in place; returns metrics."""
-    loss, metrics = epmc_loss_fn(net, cfg, roll, burn_in)
-    return apply_gradients(optimizer, loss, metrics)
+    with layers.batch_group(group):
+        loss, metrics = epmc_loss_fn(net, cfg, roll, burn_in, group)
+    return apply_gradients(optimizer, loss, metrics, group)
 
 
 _MAP_LEAVES = ("percept_2d", "percept_front")  # (..., 2, 25, 13); the rest (..., 2, k)
@@ -201,7 +208,7 @@ def collect_sepmc_rollout(net, env_bundle, cfg: PPOConfig, opponent, env_state, 
     return env_state, obs, hs, prev_done, rp.tree_stack(steps), ret
 
 
-def sepmc_loss_fn(net, cfg: PPOConfig, roll: RecurrentRollout, burn_in=0):
+def sepmc_loss_fn(net, cfg: PPOConfig, roll: RecurrentRollout, burn_in=0, group=None):
     """Replay + TD-lambda PPO for the 3-head SEPMC policy (the sampled
     angles and codebook indices injected)."""
 
@@ -217,14 +224,27 @@ def sepmc_loss_fn(net, cfg: PPOConfig, roll: RecurrentRollout, burn_in=0):
 
     inputs = (roll.obs, roll.mask, roll.a_hlc, roll.a_z, roll.a_llc)
     neglogp, vpred, ents, rms_losses = _replay_net(step, roll.hs[0], inputs, burn_in)
-    return _ppo_terms(cfg, neglogp, vpred, ents, rms_losses, _train_slice(roll, burn_in))
+    return _ppo_terms(cfg, neglogp, vpred, ents, rms_losses, _train_slice(roll, burn_in), group)
 
 
 @layers.full_fp32()
-def sepmc_train_step(net, optimizer, cfg: PPOConfig, roll, burn_in=0):
+def sepmc_train_step(net, optimizer, cfg: PPOConfig, roll, burn_in=0, group=None):
     """One recurrent PPO update of the SEPMC net in place; returns metrics."""
-    loss, metrics = sepmc_loss_fn(net, cfg, roll, burn_in)
-    return apply_gradients(optimizer, loss, metrics)
+    with layers.batch_group(group):
+        loss, metrics = sepmc_loss_fn(net, cfg, roll, burn_in, group)
+    return apply_gradients(optimizer, loss, metrics, group)
+
+
+def _learner_stats(metrics, roll, ret, group):
+    """The learner's mean return and the unroll's game outcomes (averaged /
+    summed over the ranks of `group`) into `metrics`."""
+    outcomes = _game_outcomes(roll)
+    ret = torch.mean(ret)
+    if group is not None:
+        outcomes = distributed.sum_tree(outcomes, group)
+        ret = distributed.all_mean(ret, group)
+    metrics["learner_return"] = ret
+    metrics.update(outcomes)
 
 
 def _game_outcomes(roll: RecurrentRollout):
@@ -239,27 +259,26 @@ def _game_outcomes(roll: RecurrentRollout):
 
 
 def sepmc_learner_step(net, env_bundle, cfg: PPOConfig, optimizer, opponent, env_state, obs,
-                       hs, prev_done, generator, timer=None):
+                       hs, prev_done, generator, timer=None, group=None):
     """One self-play PPO iteration: collect against the frozen opponent,
     update the learner. Returns (env_state', obs', hs', done', metrics)
     with the learner's mean return and the unroll's game outcomes."""
     env_state, obs, hs, done, roll, ret = collect_sepmc_rollout(
         net, env_bundle, cfg, opponent, env_state, obs, hs, prev_done, generator)
     mark(timer)
-    metrics = sepmc_train_step(net, optimizer, cfg, roll)
-    metrics["learner_return"] = torch.mean(ret)
-    metrics.update(_game_outcomes(roll))
+    metrics = sepmc_train_step(net, optimizer, cfg, roll, group=group)
+    _learner_stats(metrics, roll, ret, group)
     return env_state, obs, hs, done, metrics
 
 
 def epmc_learner_step(net, env_bundle, cfg: PPOConfig, optimizer, env_state, obs, hs,
-                      prev_done, generator, timer=None):
+                      prev_done, generator, timer=None, group=None):
     """One recurrent PPO iteration for the EPMC task (one update, no
     burn-in). Returns (env_state', obs', hs', done', metrics)."""
     env_state, obs, hs, done, roll = collect_epmc_rollout(net, env_bundle, cfg, env_state, obs,
                                                           hs, prev_done, generator)
     mark(timer)
-    metrics = epmc_train_step(net, optimizer, cfg, roll)
+    metrics = epmc_train_step(net, optimizer, cfg, roll, group=group)
     return env_state, obs, hs, done, metrics
 
 
@@ -321,7 +340,7 @@ def _replayed_updates(train_step_fn, cfg: PPOConfig, replay, roll, generator):
 
 
 def epmc_learner_step_replayed(net, env_bundle, cfg: PPOConfig, optimizer, env_state, obs, hs,
-                               prev_done, replay, generator, timer=None):
+                               prev_done, replay, generator, timer=None, group=None):
     """Collect one unroll, stage burn-in windows into the replay, run
     cfg.num_updates sampled-minibatch PPO updates with burn-in replay.
     Returns (env_state', obs', hs', done', replay', metrics)."""
@@ -329,21 +348,21 @@ def epmc_learner_step_replayed(net, env_bundle, cfg: PPOConfig, optimizer, env_s
                                                           hs, prev_done, generator)
     mark(timer)
     replay, metrics = _replayed_updates(
-        lambda b: epmc_train_step(net, optimizer, cfg, b, burn_in=cfg.burn_in), cfg, replay,
+        lambda b: epmc_train_step(net, optimizer, cfg, b, burn_in=cfg.burn_in, group=group),
+        cfg, replay,
         roll, generator)
     return env_state, obs, hs, done, replay, metrics
 
 
 def sepmc_learner_step_replayed(net, env_bundle, cfg: PPOConfig, optimizer, opponent, env_state,
-                                obs, hs, prev_done, replay, generator, timer=None):
+                                obs, hs, prev_done, replay, generator, timer=None, group=None):
     """Self-play collection + replay-staged burn-in PPO updates. Returns
     (env_state', obs', hs', done', replay', metrics)."""
     env_state, obs, hs, done, roll, ret = collect_sepmc_rollout(
         net, env_bundle, cfg, opponent, env_state, obs, hs, prev_done, generator)
     mark(timer)
     replay, metrics = _replayed_updates(
-        lambda b: sepmc_train_step(net, optimizer, cfg, b, burn_in=cfg.burn_in), cfg, replay,
-        roll, generator)
-    metrics["learner_return"] = torch.mean(ret)
-    metrics.update(_game_outcomes(roll))
+        lambda b: sepmc_train_step(net, optimizer, cfg, b, burn_in=cfg.burn_in, group=group),
+        cfg, replay, roll, generator)
+    _learner_stats(metrics, roll, ret, group)
     return env_state, obs, hs, done, replay, metrics

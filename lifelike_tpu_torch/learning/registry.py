@@ -18,9 +18,9 @@ host-side registry.
   * TrainCheckpoint — the learner's whole state for an exact resume, in
     the port's own format (torch.save of CPU tensors, numpy and Python
     values); compat/from_jax.read_train_checkpoint reads the JAX package's.
-
-The JAX package's ShardedTrainCheckpoint (per-rank shards of a
-multi-process run) has no counterpart yet: the port trains on one device.
+  * ShardedTrainCheckpoint — the same for a data-parallel run: a file per
+    rank and a commit marker (the JAX package's scheme, in the port's
+    format; the JAX package's own per-rank files are not read).
 """
 import os
 import pickle
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from lifelike_tpu_torch.learning.replay import tree_map
+from lifelike_tpu_torch.parallel import distributed
 
 
 def _to_numpy(tree):
@@ -194,4 +195,100 @@ class TrainCheckpoint:
         if state.get("format") != self.FORMAT:
             raise ValueError(f"{self.path}: not a {self.FORMAT} file (the JAX package's "
                              "checkpoints are read by compat.from_jax.read_train_checkpoint)")
+        return state
+
+
+class ShardedTrainCheckpoint:
+    """TrainCheckpoint of a data-parallel run over the ranks of a
+    parallel.mesh.Mesh: per-rank files and a commit marker.
+
+      path.r{rank}  every rank (torch.save of CPU tensors, as
+                    TrainCheckpoint's): {"step", "world", "format",
+                    "trees"} with the rank's own trees (its env shard, its
+                    replay shard, its generators) and, in rank 0's file
+                    only, the `replicated` ones (parameters, optimizer
+                    state, league, sampler: every rank holds the same).
+      path.step     rank 0, after a barrier that follows every rank's
+                    write: "{step} {world}", the committed step.
+
+    A crash mid-save leaves rank files of a newer step than the marker;
+    load() then refuses them and the run resumes from nothing, as the JAX
+    package's does. It refuses likewise a marker or rank file written by a
+    run of another world size (the shards would not tile this run's
+    batch) and a one-process TrainCheckpoint at `path`, and says why
+    through `log`. Every rank reads its own file and
+    rank 0's (a filesystem shared by the ranks, as the JAX package
+    assumes). Each file is written to a temp file and moved in place.
+    """
+
+    FORMAT = "lifelike_tpu_torch.ShardedTrainCheckpoint/1"
+
+    def __init__(self, path: str, mesh, log=print):
+        self.path, self.mesh, self.log = path, mesh, log
+
+    def _rank_path(self, rank):
+        return f"{self.path}.r{rank}"
+
+    def save(self, step: int, replicated=(), **trees):
+        """Write this rank's file (`trees`, but those named in
+        `replicated` only on rank 0), then, after a barrier, rank 0 the
+        marker. Every rank must call it."""
+        m = self.mesh
+        mine = {k: _to_cpu(v) for k, v in trees.items() if m.rank == 0 or k not in replicated}
+        state = {"step": int(step), "world": m.world, "format": self.FORMAT, "trees": mine}
+        os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)
+        tmp = self._rank_path(m.rank) + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, self._rank_path(m.rank))
+        distributed.barrier(m)
+        if m.rank == 0:
+            tmp = self.path + ".step.tmp"
+            with open(tmp, "w") as f:
+                f.write(f"{int(step)} {m.world}")
+            os.replace(tmp, self.path + ".step")
+
+    def _read(self, rank):
+        st = torch.load(self._rank_path(rank), map_location="cpu", weights_only=False)
+        if st.get("format") != self.FORMAT:
+            raise ValueError(f"{self._rank_path(rank)}: not a {self.FORMAT} file")
+        return st
+
+    def load(self) -> Optional[dict]:
+        """{"step", "trees"} of the committed step (this rank's trees and
+        rank 0's replicated ones, tensors on the CPU), or None: no marker,
+        a world size other than this run's, or rank files of another step
+        than the marker's (a save that did not complete)."""
+        m, marker = self.mesh, self.path + ".step"
+        if not os.path.exists(marker):
+            if os.path.exists(self.path):
+                self.log(f"{self.path}: a one-process TrainCheckpoint, this run has {m.world} "
+                         "ranks; not resuming, starting from nothing")
+            return self._agreed(None)
+        with open(marker) as f:
+            step, world = (int(v) for v in f.read().split())
+        if world != m.world:
+            self.log(f"{self.path}: saved by a world of {world} ranks, this run has {m.world}; "
+                     "not resuming, starting from nothing")
+            return self._agreed(None)
+        ranks = sorted({0, m.rank})
+        if not all(os.path.exists(self._rank_path(r)) for r in ranks):
+            self.log(f"{self.path}: rank file missing; not resuming, starting from nothing")
+            return self._agreed(None)
+        states = {r: self._read(r) for r in ranks}
+        if any(st["step"] != step or st["world"] != world for st in states.values()):
+            self.log(f"{self.path}: rank files of step "
+                     f"{sorted(st['step'] for st in states.values())} beside the committed "
+                     f"step {step} (an incomplete save); not resuming, starting from nothing")
+            return self._agreed(None)
+        return self._agreed({"step": step, "trees": {**states[0]["trees"],
+                                                     **states[m.rank]["trees"]}})
+
+    def _agreed(self, state):
+        """`state` where every rank can resume, else None on every rank."""
+        m = self.mesh
+        ok = torch.tensor([int(state is not None)], device=m.device)
+        if int(distributed.all_min(ok, m).item()) == 0:
+            if state is not None:
+                self.log(f"{self.path}: another rank cannot resume; starting from nothing")
+            return None
         return state

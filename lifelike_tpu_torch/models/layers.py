@@ -5,6 +5,11 @@ reference's trick (reference networks/layers.py:5-60): mean and std are
 trainable parameters regressed toward the batch statistics by a
 least-squares "rms loss", so the update rides the optimizer.
 
+Under data-parallel training (`batch_group`), the batch statistics that a
+loss reads — the RMS layers' batch mean and std, the VQ code usage behind
+the perplexity — are taken over the global batch of every rank, as the
+JAX package's one global jit takes them.
+
 Parameter names follow the JAX package's Flax scopes (`moving_mean`,
 `Dense_0`, `mean`, `logstd`, ...) so that models/params.py maps a Flax
 parameter tree onto a module's state_dict by path. Dense layers are
@@ -17,6 +22,8 @@ from typing import Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from lifelike_tpu_torch.parallel import distributed
 
 
 def act_fn(name):
@@ -45,6 +52,34 @@ def full_fp32():
         yield
     finally:
         conv.fp32_precision, matmul.fp32_precision = saved
+
+
+_BATCH_MESH = None  # the mesh of batch_group(); None: local statistics
+
+
+@contextlib.contextmanager
+def batch_group(mesh):
+    """Within the context the batch statistics (batch_mean) are over the
+    global batch of every rank of `mesh` (a parallel.mesh.Mesh); with None
+    or a mesh of one process they stay local. Every rank must run the same
+    forward passes inside it: each statistic is one collective."""
+    global _BATCH_MESH
+    saved = _BATCH_MESH
+    _BATCH_MESH = mesh if mesh is not None and mesh.group is not None else None
+    try:
+        yield
+    finally:
+        _BATCH_MESH = saved
+
+
+def batch_mean(flat):
+    """Mean over the rows of `flat` (N, D): of this rank's rows, or of every
+    rank's under batch_group (a sum of the rows and of their count)."""
+    if _BATCH_MESH is None:
+        return flat.mean(0)
+    tot = distributed.all_sum(torch.cat([flat.sum(0), flat.new_tensor([flat.shape[0]])]),
+                              _BATCH_MESH)
+    return tot[:-1] / tot[-1]
 
 
 def normc_init(scale=1.0):
@@ -76,7 +111,8 @@ class RMS(nn.Module):
 
     Returns (normalized, rms_loss). The normalized output is detached and
     clipped to +-5 like the reference (pmc_net.py:131-135); the batch
-    statistics are population statistics over every axis but the last.
+    statistics are population statistics over every axis but the last (and
+    over every rank's batch under batch_group).
     """
 
     def __init__(self, dim, momentum=1e-4):
@@ -89,8 +125,8 @@ class RMS(nn.Module):
         mean, std = self.moving_mean, self.moving_std
         out = torch.clamp(((x - mean) / (std + 1e-8)).detach(), -5.0, 5.0)
         flat = x.detach().reshape(-1, x.shape[-1])
-        b_mean = flat.mean(0)
-        b_std = flat.std(0, correction=0)
+        b_mean = batch_mean(flat)
+        b_std = torch.sqrt(batch_mean((flat - b_mean) ** 2))
         rms_loss = 0.5 * self.momentum * (
             torch.mean((mean - b_mean) ** 2) + torch.mean((std - b_std) ** 2)
         )

@@ -22,7 +22,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from lifelike_tpu_torch.models import params as P
-from lifelike_tpu_torch.models.layers import MLP, RMS, DiagGaussianHead, act_fn, dense, full_fp32
+from lifelike_tpu_torch.models.layers import (MLP, RMS, DiagGaussianHead, act_fn, batch_mean, dense,
+                                             full_fp32)
 
 PROP_DIM, PROP_A_DIM, FUTURE_DIM = 99, 36, 72  # envs.primitive observation widths
 
@@ -155,7 +156,7 @@ class PMCNet(nn.Module):
             e_latent = torch.mean((quantized.detach() - z_encode) ** 2)
             q_latent = torch.mean((quantized - z_encode.detach()) ** 2)
             one_hot = F.one_hot(idx, c.num_embeddings).to(prop.dtype)
-            avg = torch.mean(one_hot.reshape(-1, c.num_embeddings), dim=0)
+            avg = batch_mean(one_hot.reshape(-1, c.num_embeddings))
             perplexity = torch.exp(-torch.sum(avg * torch.log(avg + 1e-10)))
             kl = zero
         else:  # Gaussian reparameterized latent (reference pmc_net.py:150-155)

@@ -73,8 +73,12 @@ def _finish(k: Kernel, pending) -> BuildInfo:
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
-        with open(log, "w") as f:
+        # the report, then the library, each moved in whole: a process that
+        # finds the library (another rank building the same kernel) finds
+        # both complete
+        with open(f"{log}.{os.getpid()}.tmp", "w") as f:
             f.write(out + err)
+        os.replace(f"{log}.{os.getpid()}.tmp", log)
         os.replace(tmp, so)
     with open(log) as f:
         return BuildInfo(path=so, seconds=seconds, ptxas=f.read())

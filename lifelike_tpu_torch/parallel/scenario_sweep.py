@@ -1,6 +1,6 @@
-"""SEPMC scenario sweep on one device.
+"""SEPMC scenario sweep, on one device or sharded over ranks.
 
-Port of lifelike_tpu.parallel.scenario_sweep (without the sharded form): a
+Port of lifelike_tpu.parallel.scenario_sweep: a
 batch of S independent Chase-Tag scenarios — a randomized V4 arena per
 scenario, two robots facing off from opposite halves, a flag and the chaser
 role — and, for every scenario, alternating-best-response rounds of the
@@ -16,6 +16,10 @@ and two of rollout_chase_fused (K4, all S x population candidates at once),
 plus one batched softmax and weighted mean per robot. `sweep_scenarios` is
 its oracle: the same solves one scenario at a time, one scenario per
 launch. On CPU tensors both run the kernels' plain versions.
+`sharded_scenario_sweep` shards the scenarios over the ranks of a
+parallel.mesh.Mesh, each rank running the tiled sweep on its S / W
+scenario blocks with normals drawn per GLOBAL scenario index
+(`scenario_noise`), so its results do not depend on the world size.
 
 Two deliberate differences from the reference. A robot stands on whatever
 cube lies under its spawn footprint (`spawn_height`, the remedy
@@ -35,6 +39,8 @@ import torch
 
 from lifelike_tpu_torch import _device
 from lifelike_tpu_torch.ops import traversal_cuda
+from lifelike_tpu_torch.parallel import distributed as D
+from lifelike_tpu_torch.parallel.mesh import Mesh, shard_batch, shard_rows
 from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.physics.dynamics import RobotState
 from lifelike_tpu_torch.scene import arena_gen
@@ -272,3 +278,50 @@ def sweep_scenarios(c: B.TLConstants, params, cfg: MPPIConfig, generator, scen: 
         u_out.append(torch.stack(u))
         cost_out.append(torch.stack(cost))
     return torch.stack(u_out), torch.stack(cost_out)
+
+
+def scenario_noise(seed: int, cfg: MPPIConfig, scenarios, n_rounds: int, dtype, device):
+    """Raw normals of the scenarios with the GLOBAL indices `scenarios`, in
+    draw_noise's layout (their rows in the order given): scenario s's own
+    from a generator seeded by distributed.rank_seed(seed, s), drawn in
+    draw_noise's order, so a scenario's normals do not depend on which
+    rank sweeps it."""
+    Bs, L = _layout(cfg)
+    per = []
+    for s in scenarios:
+        g = torch.Generator(device=device).manual_seed(D.rank_seed(seed, s))
+        per.append(draw_noise(g, cfg, 1, n_rounds, dtype, device))
+    return [[torch.cat([p[u][it] for p in per], dim=3) for it in range(cfg.iterations)]
+            for u in range(2 * n_rounds)]
+
+
+def sharded_scenario_sweep(mesh: Mesh, c: B.TLConstants, params, cfg: MPPIConfig, seed,
+                           scen: ScenarioBatch, u_warm=None, n_rounds: int = 1, eps=None,
+                           device="cuda"):
+    """The sweep with the scenario axis sharded over the ranks of `mesh`:
+    each rank runs sweep_scenarios_tiled (K3 / K4 over its S / W scenario
+    blocks) on its slice of the global batch `scen` (the same on every
+    rank) and keeps its scenarios' plans and costs; the summary is reduced.
+
+    The normals are keyed by the global scenario index: scenario_noise(seed,
+    ...) when eps is None, else eps in draw_noise's layout for all S
+    scenarios (each rank takes its rows). S must divide over the ranks
+    (ValueError). Returns (u (S / W, 2, H, 4, 3), best_cost (S / W, 2),
+    {mean_cost, min_cost} over all S scenarios, the same on every rank)."""
+    S = scen.flag_pos.shape[0]
+    rows = shard_rows(mesh, S)
+    local = shard_batch(mesh, scen)
+    if u_warm is not None:
+        u_warm = shard_batch(mesh, u_warm)
+    dtype, dev = scen.flag_pos.dtype, scen.flag_pos.device
+    Bs, _ = _layout(cfg)
+    if eps is None:
+        eps = scenario_noise(seed, cfg, range(rows.start, rows.stop), n_rounds, dtype, dev)
+    else:
+        cut = slice(rows.start * Bs, rows.stop * Bs)
+        eps = [[e[..., cut, :] for e in upd] for upd in eps]
+    u, cost = sweep_scenarios_tiled(c, params, cfg, None, local, u_warm, n_rounds, eps=eps,
+                                    device=device)
+    mean_c = D.all_sum(cost.sum().reshape(1), mesh)[0] / cost.new_tensor(2.0 * S)
+    min_c = D.all_min(cost.min().reshape(1), mesh)[0]
+    return u, cost, {"mean_cost": mean_c, "min_cost": min_c}

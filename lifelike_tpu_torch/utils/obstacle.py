@@ -7,7 +7,6 @@ clip time. Peak finding runs on the host at clip-load time (numpy), making
 the tables the env reads on the device.
 """
 import numpy as np
-from scipy.signal import find_peaks
 
 
 def obstacles_in_frames(frames, frame_rate):
@@ -16,6 +15,8 @@ def obstacles_in_frames(frames, frame_rate):
     frames = np.asarray(frames)
     if frames.ndim != 2 or frames.shape[1] != 19:
         raise ValueError(f"expected (T, 19) frames, got {frames.shape}")
+    from scipy.signal import find_peaks  # slow to import: loaded with the first clip
+
     peak_ids, _ = find_peaks(frames[:, 2], height=0.5, distance=120)
     if len(peak_ids) == 0:
         return None

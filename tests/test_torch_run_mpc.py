@@ -164,7 +164,8 @@ for m in ("envs.chase_tag", "scene.arena_gen", "scene.arena_fixed", "costs.chase
           "learning.learner", "learning.recurrent", "learning.freeze", "bin.run_learner",
           "robot.ik", "motion.bvh", "motion.retarget", "models.z_net", "learning.distill",
           "utils.profiling", "tools.make_eval", "tools.debug_traversal",
-          "tools.distill_prior"):
+          "tools.distill_prior", "parallel.mesh", "parallel.distributed",
+          "parallel.sharded_solve", "tools.launch_multihost", "tools.multihost_worker"):
     assert "lifelike_tpu_torch." + m in names, m
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -122,3 +122,25 @@ def shifted_start(tl):
     """A TLState start moved by 1e-10 m along x."""
     x = tl.base_pos.new_tensor([1e-10, 0.0, 0.0]).reshape(3, 1, 1)
     return tl._replace(base_pos=tl.base_pos + x)
+
+
+def run_ranks(case, directory, inputs, n=2, timeout=180):
+    """Run tests/torch_dist_worker.py's `case` as n gloo ranks on the CPU
+    (launched as tools/launch_multihost launches them) on `inputs`; returns
+    each rank's outputs, in rank order."""
+    import os
+    import sys
+
+    from lifelike_tpu_torch.tools import launch_multihost
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    directory = str(directory)
+    torch.save(inputs, os.path.join(directory, "inputs.pt"))
+    logs = os.path.join(directory, "logs")
+    rcs = launch_multihost.launch([sys.executable, "-m", "tests.torch_dist_worker", case,
+                                   directory], n, cpu=True, log_dir=logs, timeout=timeout,
+                                  cwd=repo)
+    text = "\n".join(open(os.path.join(logs, f"rank{r}.log")).read() for r in range(n))
+    assert rcs == [0] * n, (rcs, text)
+    return [torch.load(os.path.join(directory, f"out{r}.pt"), weights_only=False)
+            for r in range(n)]
