@@ -234,6 +234,25 @@ result line:
      run's, bitwise equality reported) beside one EPMC update (hurdles, from the pool
      checkpoint); every update's metrics equal on both ranks; ms per
      update (collection / optimisation) per rank;
+ 16. heightmap terrain on the tile-layout MPC path and the tool twins (no
+     kernel of its own; a terrain never reaches K1): (a) at the PMC
+     headline shape, float32: rollout_tl.rollout_tracking with an explicit
+     plane terrain_fn bitwise the plane default's costs, mppi_tl.mppi_step
+     with that terrain_fn (the eager tile route) within 2e-4 x max(1, |c|)
+     of the K1 route under the same normals, K1 launches 0 / 1; (b) the
+     heightmap route (a tile adapter around scene.boxes.heightmap_at on a
+     platform and a playground_gen hurdle) on the card vs the CPU in
+     float64 at population 128, H 3, substeps 2, 1e-9; (c)
+     make_mpc_controller on that heightmap at the headline shape for
+     TERRAIN_STEPS steps on the batch-leading plant
+     (physics/engine.control_step with boxes.terrain_height_fn): K1
+     launches 0, finite costs, the trunk above the platform's top + 0.2 m;
+     solve ms beside the K1 route's; (d) tools/sysid_contact --iters 1
+     --pop 48 on the card (float64): the defaults' errors within 1e-6 of
+     the CPU's, finite, best <= defaults; (e) tools/pmc_curve: the JAX
+     learner log and phase 13's update lines parsed, random init and the
+     pool checkpoint evaluated through bin/run_eval on the card, rc 0 and
+     finite rewards;
 then one JSON line listing the six kernels, the nvidia-smi line, and last
 the result line {"ok": true, "device": {...}}. Needs one card; builds the
 kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
@@ -247,6 +266,10 @@ runs phase 13 alone and ends with one JSON line of its rows;
   python3 chip_smoke.py --eval
 
 runs phase 14 alone and ends with one JSON line of its rows.
+
+  python3 chip_smoke.py --terrain
+
+builds K1, runs phase 16 alone and ends with one JSON line of its rows.
 
   python3 chip_smoke.py --multi
 
@@ -348,6 +371,20 @@ HYB_TASK_HORIZON, HYB_TASK_STEPS = 5, 1
 # and 3); every launch of ranks is killed after MULTI_TIMEOUT_S, and a
 # collective waits that long at most
 MULTI_SOLVES, MULTI_SEED, MULTI_TIMEOUT_S, MULTI_UPDATES = 10, 15, 300, 1
+# phase 16: heightmap terrain on the tile-layout path (a platform of top
+# TERRAIN_TOP m and a hurdle) and the pmc_curve / sysid_contact twins. 16c's
+# closed loop runs TERRAIN_STEPS control steps at the headline shape (each
+# solve rolls POP candidates through H x substeps = 500 eager substeps); 16b
+# holds the card to the CPU at population TERRAIN_PARITY_POP, H 3, substeps
+# 2 in float64; 16d runs sysid_contact at --iters 1 --pop SYSID_POP; 16e
+# evaluates two PMC policies for PMC_CURVE_STEPS steps. TRAIN_LOG is a copy
+# of runs/pmc_r5/train.log (the JAX learner's log), since runs/ is not
+# copied to the card.
+TERRAIN_STEPS, TERRAIN_TOP, TERRAIN_PARITY_POP = 3, 0.1, 128
+TERRAIN_DEVICE = "cuda"  # phase 16's device (a CPU rehearsal sets "cpu")
+SYSID_POP, PMC_CURVE_STEPS = 48, 10
+TRAIN_LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "lifelike_tpu_torch/data/pmc_r5/train.log")
 RICCATI_N, RICCATI_M, RICCATI_S = 37, 12, HYB_REFINE + 1
 # operations and float32 bytes of one Riccati step of one scenario, printed
 # by tools/kernel_op_counts.py (the Pallas kernel's _backward_step traced at
@@ -2260,6 +2297,14 @@ def check_handoff(name, out, flags):
     return counts
 
 
+LEARNER_LINES = []  # the run_learner lines of phase 13 (phase 16e parses its updates)
+
+
+def _learner_log(name, m):
+    LEARNER_LINES.append(m)
+    say(f"run_learner {name}: " + m)
+
+
 def run_learners(launches_of):
     """Phase 13b: bin/run_learner for the three stages in turn on the card,
     each run with every kernel count set to 0 first. Returns the rows of
@@ -2283,7 +2328,7 @@ def run_learners(launches_of):
                 f for f in flags if not f.startswith("--total_updates")]
             for k in launches_of:
                 k.launches = 0
-            out = run_learner.main(argv, log=lambda m, name=name: say(f"run_learner {name}: " + m))
+            out = run_learner.main(argv, log=lambda m, name=name: _learner_log(name, m))
             launches = [k.launches for k in launches_of]
             want = [0] * len(launches_of)
             if name == "epmc hard-contact":
@@ -2878,6 +2923,368 @@ def multi_mode():
     return 0
 
 
+# phase 16: heightmap terrain on the tile-layout MPC path and the tool twins
+def tile_heightmap(scene):
+    """A tile-layout terrain_fn over the batch-leading scene.boxes.heightmap_at:
+    p (4, 3, Bs, L) -> heights (4, Bs, L), normals +z (4, 3, Bs, L). Neither
+    package has a tile-layout heightmap; the smoke and
+    tests/test_torch_terrain_tl.py move the tile axes around it themselves."""
+    import torch
+
+    from lifelike_tpu_torch.scene import boxes
+
+    def fn(p):
+        h = boxes.heightmap_at(scene, p[:, :2].permute(2, 3, 0, 1)).permute(2, 0, 1)
+        n = torch.zeros_like(p)
+        n[:, 2] = 1.0
+        return h, n
+
+    return fn
+
+
+def tile_plane(p):
+    """An explicit plane terrain_fn: heights 0, normals +z."""
+    import torch
+
+    n = torch.zeros_like(p)
+    n[:, 2] = 1.0
+    return torch.zeros_like(p[:, 0]), n
+
+
+def terrain_scene(dtype, device="cuda"):
+    """The platform of tests/test_box_contact.py (half extents 2 x 2 x 0.05 m,
+    centre z 0.05: its top is TERRAIN_TOP) and the first hurdle of a seeded
+    scene/playground_gen hurdle course (element 1; boxes 0-1 are the
+    corridor walls), drawn on the CPU so that every device gets the same
+    scene."""
+    import torch
+
+    from lifelike_tpu_torch.scene import playground_gen
+    from lifelike_tpu_torch.scene.boxes import BoxScene
+
+    f64 = torch.float64
+    course = playground_gen.generate(torch.Generator().manual_seed(16),
+                                     playground_gen.PlaygroundConfig(element_id=1), f64)
+    center = torch.stack([torch.tensor([0.0, 0.0, 0.05], dtype=f64), course.center[2]])
+    half = torch.stack([torch.tensor([2.0, 2.0, 0.05], dtype=f64), course.half[2]])
+    return BoxScene(center=center.to(device, dtype), half=half.to(device, dtype),
+                    active=torch.ones(2, dtype=torch.bool, device=device),
+                    target_pos=torch.zeros(3, dtype=dtype, device=device))
+
+
+def _on_platform(tl):
+    """A tile-layout start state raised onto the platform's top."""
+    import torch
+
+    lift = torch.tensor([0.0, 0.0, TERRAIN_TOP], dtype=tl.base_pos.dtype,
+                        device=tl.base_pos.device).reshape(3, 1, 1)
+    return tl._replace(base_pos=tl.base_pos + lift)
+
+
+def _event_ms(fn):
+    """(fn(), its CUDA-event ms)."""
+    import torch
+
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _rel_err(got, want, floor=1.0):
+    """max |got - want| / max(floor, |want|) over the leaves of two lists."""
+    return max(float(((g.double().cpu() - w.double().cpu()).abs()
+                      / w.double().cpu().abs().clamp_min(floor)).max())
+               for g, w in zip(got, want))
+
+
+def check_terrain_route():
+    """Phase 16a at the PMC headline shape, float32: the tile rollout with an
+    explicit plane terrain_fn gives bitwise the costs of the plane default;
+    mppi_step with that terrain_fn (the eager route) within 2e-4 x max(1,
+    |c|) of mppi_step on the K1 route under the same normals; K1 launched 0
+    times by the terrain calls and once by the K1 call. Returns the row."""
+    import torch
+
+    from lifelike_tpu_torch.ops import rollout_cuda
+    from lifelike_tpu_torch.solver import mppi, mppi_tl, rollout_tl
+
+    k1 = rollout_cuda.rollout_tracking_fused
+    c, params, tl, u, ref = solve_inputs(torch.float32, HORIZON, SUBSTEPS, SUBSTEPS, POP, 161,
+                                       device=TERRAIN_DEVICE)
+    tl = _on_platform(tl)
+    k1.launches = 0
+    plane, plane_ms = _event_ms(lambda: rollout_tl.rollout_tracking(c, params, tl, u, ref)[0])
+    explicit, ms = _event_ms(
+        lambda: rollout_tl.rollout_tracking(c, params, tl, u, ref, tile_plane)[0])
+    if not torch.equal(plane, explicit) or not bool(torch.isfinite(plane).all()):
+        raise SystemExit("terrain (a): an explicit plane terrain_fn changed the rollout's costs")
+    cfg = mppi.MPPIConfig(horizon=HORIZON, population=POP, iterations=1)
+    g = torch.Generator(device=TERRAIN_DEVICE).manual_seed(162)
+    eps = [torch.randn((HORIZON, 4, 3, POP // 128, 128), generator=g, device=TERRAIN_DEVICE)]
+    u0 = torch.zeros((HORIZON, 4, 3), device=TERRAIN_DEVICE)
+    (ue, de), solve_ms = _event_ms(
+        lambda: mppi_tl.mppi_step(c, params, cfg, None, tl, u0, ref, tile_plane, eps=eps))
+    terrain_k1 = k1.launches
+    uk, dk = mppi_tl.mppi_step(c, params, cfg, None, tl, u0, ref, eps=eps)
+    torch.cuda.synchronize()
+    route_k1 = k1.launches - terrain_k1
+    err = _rel_err([ue, de["best_cost"], de["weighted_cost"]],
+                   [uk, dk["best_cost"], dk["weighted_cost"]])
+    say(f"terrain (a) pop {POP} H {HORIZON} substeps {SUBSTEPS} mass_freeze {SUBSTEPS} f32: "
+        f"explicit plane terrain_fn bitwise the plane default's costs (mean "
+        f"{float(plane.mean()):.6f}) | mppi_step eager terrain route vs K1 route: max rel "
+        f"{err:.3e} over plan / best / weighted (gate 2e-4 x max(1, |c|)) | K1 launches: "
+        f"terrain calls {terrain_k1}, K1 call {route_k1} | eager tile rollout {plane_ms:.1f} / "
+        f"{ms:.1f} ms, eager-route solve {solve_ms:.1f} ms (CUDA events)")
+    if terrain_k1 != 0 or route_k1 != 1:
+        raise SystemExit(f"terrain (a): K1 launches {terrain_k1} / {route_k1}, expected 0 / 1")
+    if not err <= 2e-4:
+        raise SystemExit("terrain (a): the eager terrain route disagrees with the K1 route")
+    return dict(err_vs_k1_route=err, rollout_ms=[plane_ms, ms], solve_ms=solve_ms,
+                k1_launches=[terrain_k1, route_k1])
+
+
+def check_terrain_parity():
+    """Phase 16b: the heightmap route on the card vs the CPU in float64 at
+    population TERRAIN_PARITY_POP, H 3, substeps 2 (rollout costs, mppi_step's
+    plan and costs under the same normals), within 1e-9 x max(1, |x|). The
+    start, candidates, reference and normals are made once on the CPU and
+    copied to the card: the clip's float32 finite-difference velocities
+    would otherwise round differently on the two devices."""
+    import numpy as np
+    import torch
+
+    from lifelike_tpu_torch.physics import batched as B
+    from lifelike_tpu_torch.robot.model import build_max_model
+    from lifelike_tpu_torch.solver import mppi, mppi_tl, rollout_tl
+
+    h, pop, f64 = 3, TERRAIN_PARITY_POP, torch.float64
+    cfg = mppi.MPPIConfig(horizon=h, population=pop, iterations=1)
+    _, params, tl, u, ref = solve_inputs(f64, h, 2, 1, pop, 163, device="cpu")
+    tl = _on_platform(tl)
+    eps = torch.as_tensor(np.random.default_rng(165).standard_normal((h, 4, 3, 1, pop)))
+    outs, names = {}, ("costs", "plan", "best", "weighted")
+    for dev in (TERRAIN_DEVICE, "cpu"):
+        move = lambda tree: type(tree)(*(x.to(dev) for x in tree))
+        c = B.tl_constants(build_max_model(), dtype=f64, device=dev)
+        terrain = tile_heightmap(terrain_scene(f64, dev))
+        cost, _ = rollout_tl.rollout_tracking(c, params, move(tl), u.to(dev), move(ref), terrain)
+        plane, _ = rollout_tl.rollout_tracking(c, params, move(tl), u.to(dev), move(ref))
+        plan, d = mppi_tl.mppi_step(c, params, cfg, None, move(tl),
+                                    torch.zeros((h, 4, 3), dtype=f64, device=dev), move(ref),
+                                    terrain, eps=[eps.to(dev)])
+        outs[dev] = [cost, plan, d["best_cost"], d["weighted_cost"]]
+        moved = float((plane - cost).abs().max())
+    errs = [_rel_err([g], [w]) for g, w in zip(outs[TERRAIN_DEVICE], outs["cpu"])]
+    err = max(errs)
+    say(f"terrain (b) heightmap route, pop {pop} H {h} substeps 2 f64, card vs CPU: max rel "
+        f"{err:.3e} ({', '.join(f'{n} {e:.3e}' for n, e in zip(names, errs))}; gate 1e-9) | "
+        f"the heightmap moves the costs by up to {moved:.3e} from the plane's")
+    if not err <= 1e-9:
+        raise SystemExit("terrain (b): the card's heightmap route disagrees with the CPU's")
+    if not moved > 1e-3:
+        raise SystemExit("terrain (b): the heightmap did not change the costs")
+    return dict(err_card_vs_cpu=err, errs=dict(zip(names, errs)))
+
+
+def terrain_closed_loop():
+    """Phase 16c: mppi_tl.make_mpc_controller with the tile heightmap at the
+    headline shape for TERRAIN_STEPS control steps on the batch-leading
+    plant physics/engine.control_step with boxes.terrain_height_fn of the
+    same scene; K1 launches 0, finite costs, the trunk above the platform's
+    top + 0.2 m at every step; solve ms (CUDA events) beside the K1 route's
+    from the same start. Returns the row."""
+    import numpy as np
+    import torch
+
+    from lifelike_tpu_torch.motion import motion_lib
+    from lifelike_tpu_torch.ops import rollout_cuda
+    from lifelike_tpu_torch.physics import batched as B
+    from lifelike_tpu_torch.physics import engine
+    from lifelike_tpu_torch.physics.dynamics import RobotState
+    from lifelike_tpu_torch.robot.model import build_max_model
+    from lifelike_tpu_torch.scene import boxes
+    from lifelike_tpu_torch.solver import mppi, mppi_tl
+
+    dev, f32 = torch.device(TERRAIN_DEVICE), torch.float32
+    model = build_max_model()
+    clips = motion_lib.pack_clips([motion_lib.make_synthetic_clip(120 * 4)],
+                                  frame_step=1.0 / 120.0, device=dev)
+    params = engine.PhysicsParams(substeps=SUBSTEPS, mass_freeze=SUBSTEPS)
+    plant = engine.PhysicsParams(substeps=SUBSTEPS)
+    c = B.tl_constants(model, dtype=f32, device=dev)
+    scene = terrain_scene(f32, dev)
+    cfg = mppi.MPPIConfig(horizon=HORIZON, population=POP, iterations=1)
+    policy_dt = params.dt * params.substeps
+    T = lambda x: torch.as_tensor(np.asarray(x), dtype=f32, device=dev)
+    start = RobotState(base_pos=T([0.0, 0.0, 0.33 + TERRAIN_TOP]), base_orn=T([0.0, 0.0, 0.0, 1.0]),
+                       base_lin_vel=T(np.zeros(3)), base_ang_vel=T(np.zeros(3)),
+                       joint_pos=T([-0.028, -0.779, 1.687] * 4), joint_vel=T(np.zeros(12)))
+    k1 = rollout_cuda.rollout_tracking_fused
+    rows = {}
+    for route, terrain in (("heightmap", tile_heightmap(scene)), ("plane K1", None)):
+        ctrl = mppi_tl.make_mpc_controller(model, c, params, clips, cfg, terrain_fn=terrain,
+                                           device=dev)
+        gen = torch.Generator(device=dev).manual_seed(164)
+        robot, u, ms, z, costs = start, torch.zeros((HORIZON, 4, 3), device=dev), [], [], []
+        k1.launches = 0
+        for i in range(TERRAIN_STEPS):
+            t = T(0.2 + i * policy_dt)
+            (tgt, u, diag), dt = _event_ms(
+                lambda: ctrl(gen, robot, torch.tensor(0, device=dev), t, u))
+            ms.append(dt)
+            costs.append(float(diag["best_cost"]))
+            if route == "heightmap":
+                robot = engine.control_step(model, plant, robot, tgt,
+                                            terrain_fn=boxes.terrain_height_fn(scene))
+                z.append(float(robot.base_pos[2]))
+        rows[route] = dict(solve_ms=ms, best_cost=costs, trunk_z=z, k1_launches=k1.launches)
+        if not all(math.isfinite(x) for x in costs):
+            raise SystemExit(f"terrain (c) {route}: non-finite costs {costs}")
+    hm, pl = rows["heightmap"], rows["plane K1"]
+    say(f"terrain (c) closed loop on the heightmap, pop {POP} H {HORIZON} substeps {SUBSTEPS} "
+        f"mass_freeze {SUBSTEPS} f32, {TERRAIN_STEPS} steps on engine.control_step with "
+        f"boxes.terrain_height_fn: best costs {hm['best_cost']} | trunk z {hm['trunk_z']} "
+        f"(gate > {TERRAIN_TOP + 0.2:.2f} m) | K1 launches {hm['k1_launches']} | solve after "
+        f"warm-up p50 {statistics.median(hm['solve_ms'][1:]):.1f} ms max "
+        f"{max(hm['solve_ms'][1:]):.1f} ms (first {hm['solve_ms'][0]:.1f}) vs the K1 route from "
+        f"the same start p50 {statistics.median(pl['solve_ms'][1:]):.3f} ms (K1 launches "
+        f"{pl['k1_launches']}) (CUDA events)")
+    if hm["k1_launches"] != 0 or pl["k1_launches"] != TERRAIN_STEPS:
+        raise SystemExit(f"terrain (c): K1 launches {hm['k1_launches']} / {pl['k1_launches']}, "
+                         f"expected 0 / {TERRAIN_STEPS}")
+    if not all(x > TERRAIN_TOP + 0.2 for x in hm["trunk_z"]):
+        raise SystemExit(f"terrain (c): the trunk fell to the platform: {hm['trunk_z']}")
+    return rows
+
+
+def check_sysid():
+    """Phase 16d: tools/sysid_contact on the card (--iters 1 --pop SYSID_POP,
+    float64): the errors at the defaults within 1e-6 relative of the same
+    objective on the CPU; finite, and the best at or below the defaults."""
+    import numpy as np
+
+    from lifelike_tpu_torch.tools import sysid_contact
+
+    lines = []
+    out, ms = _event_ms(lambda: sysid_contact.main(
+        ["--iters=1", f"--pop={SYSID_POP}", f"--device={TERRAIN_DEVICE}"],
+        log=lambda *a: lines.append(" ".join(map(str, a)))))
+    t0 = time.perf_counter()
+    cpu = sysid_contact.make_eval(sysid_contact.load_traces("cpu"))(
+        sysid_contact.default_theta()[None])[0]
+    cpu_s = time.perf_counter() - t0
+    card = np.array([out["default_errors"][n] for n in sysid_contact.NAMES])
+    rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    best, base = sum(out["errors"].values()), sum(out["default_errors"].values())
+    say(f"terrain (d) sysid_contact --iters 1 --pop {SYSID_POP} on the card (f64): defaults "
+        f"{out['default_errors']} vs the CPU's {dict(zip(sysid_contact.NAMES, cpu.tolist()))}: "
+        f"max rel {rel:.3e} (gate 1e-6) | best kn {out['kn']:.6g} dn {out['dn']:.6g} v_slip "
+        f"{out['v_slip']:.6g} fric_visc_cap {out['fric_visc_cap']:.6g}, errors "
+        f"{out['errors']} (sum {best:.6f} vs defaults' {base:.6f}) | {ms / 1e3:.1f} s on the "
+        f"card (3 objective calls, beside (e)'s run_eval subprocesses), the CPU's default "
+        f"objective {cpu_s:.1f} s")
+    if not rel <= 1e-6:
+        raise SystemExit("terrain (d): the card's sysid objective disagrees with the CPU's")
+    if not (math.isfinite(best) and best <= base):
+        raise SystemExit(f"terrain (d): best {best} not finite or above the defaults' {base}")
+    return dict(rel_err=rel, best=out, seconds=ms / 1e3)
+
+
+def start_pmc_curve_evals(pool):
+    """Phase 16e's eval_policy runs of random init and the pool checkpoint
+    (bin/run_eval subprocesses on the card), started on `pool` so that they
+    run beside 16d; returns their futures."""
+    from lifelike_tpu_torch.tools import pmc_curve
+
+    return [pool.submit(pmc_curve.eval_policy, p, 1, PMC_CURVE_STEPS, device=TERRAIN_DEVICE)
+            for p in ("", POOL_MODEL)]
+
+
+def check_pmc_curve(evals):
+    """Phase 16e: tools/pmc_curve on the card: parse_log of the JAX learner's
+    log (a copy of runs/pmc_r5/train.log) and of phase 13's run_learner
+    update lines (a one-update PMC run on the card when phase 13 did not
+    run); the eval_policy futures of start_pmc_curve_evals: rc 0 and finite
+    rewards."""
+    import tempfile
+
+    from lifelike_tpu_torch.bin import run_learner
+    from lifelike_tpu_torch.tools import pmc_curve
+
+    rows = pmc_curve.parse_log(TRAIN_LOG)
+    lines = [m for m in LEARNER_LINES if m.startswith("update ")]
+    source = "phase 13's run_learner lines"
+    if not lines:
+        run_learner.main(["--task=pmc", f"--device={TERRAIN_DEVICE}", "--num_envs=8",
+                          "--total_updates=1", "--log_interval=1",
+                          "--learner_config={'unroll_length': 4}"], log=lines.append)
+        lines = [m for m in lines if m.startswith("update ")]
+        source = "a one-update run_learner PMC run on the card"
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "train.log")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        port_rows = pmc_curve.parse_log(path)
+    evals = [f.result() for f in evals]
+    say(f"terrain (e) pmc_curve: {len(rows)} updates parsed from the JAX learner log (last "
+        f"{rows[-1] if rows else None}), {len(port_rows)} from {source} ({port_rows}) | "
+        f"eval_policy on the card, {PMC_CURVE_STEPS} steps: random init {evals[0]}, "
+        f"{os.path.basename(POOL_MODEL)} {evals[1]} (two run_eval subprocesses side by side, "
+        f"beside (d))")
+    if not rows or not port_rows:
+        raise SystemExit("terrain (e): pmc_curve.parse_log found no update")
+    for rews, _, rc in evals:
+        if rc != 0 or len(rews) != 1 or not all(math.isfinite(r) for r in rews):
+            raise SystemExit(f"terrain (e): run_eval rc {rc}, rewards {rews}")
+    return dict(log_rows=len(rows), port_rows=len(port_rows), evals=evals)
+
+
+def run_terrain(smi):
+    """Phase 16: heightmap terrain on the tile-layout path (a-c) and the tool
+    twins (d-e; 16e's run_eval subprocesses run beside 16d). Returns its
+    rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t16 = time.perf_counter()
+    rows = {"smi": smi}
+    rows["a"] = check_terrain_route()
+    rows["b"] = check_terrain_parity()
+    rows["c"] = terrain_closed_loop()
+    with ThreadPoolExecutor(2) as pool:
+        evals = start_pmc_curve_evals(pool)
+        rows["d"] = check_sysid()
+        rows["e"] = check_pmc_curve(evals)
+    rows["seconds"] = time.perf_counter() - t16
+    say(f"phase 16: {rows['seconds']:.1f} s [{smi}]")
+    return rows
+
+
+def terrain_mode():
+    """The --terrain mode: phase 16 alone, then one JSON line of its rows."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs one NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from lifelike_tpu_torch.ops import cuda_build, rollout_cuda
+
+    smi = nvidia_smi()
+    say(f"terrain: {torch.cuda.get_device_name(0)} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | nvidia-smi: {smi}")
+    t0 = time.perf_counter()
+    cuda_build.build_all([rollout_cuda.KERNEL])
+    rollout_cuda.build()
+    say(f"build: K1 in {time.perf_counter() - t0:.1f} s wall")
+    rows = run_terrain(smi)
+    say(json.dumps(rows, default=str))
+    return 0
+
+
 def peaks():
     """The H100 SXM's published peaks (utils.profiling.H100_SXM: FP32 / FP64
     outside the tensor cores, HBM3 bytes/s, at its 700 W limit), the one
@@ -3221,6 +3628,9 @@ def main():
     # 15. the multi-process layer: ranks on this card, the kernels built above
     run_multi(smi)
 
+    # 16. heightmap terrain on the tile-layout path and the tool twins
+    run_terrain(smi)
+
     say(json.dumps({"kernels": [
         dict(name=KERNELS[k]["name"], route="cuda", source=KERNELS[k]["source"],
              replaces=KERNELS[k]["replaces"], launches=launches[k], max_abs_err=err[k],
@@ -3411,4 +3821,6 @@ if __name__ == "__main__":
         sys.exit(learner_mode())
     if sys.argv[1:2] == ["--eval"]:
         sys.exit(eval_mode())
+    if sys.argv[1:2] == ["--terrain"]:
+        sys.exit(terrain_mode())
     sys.exit(main())

@@ -289,7 +289,8 @@ class Run:
     def log_publish(self, i, metrics, net):
         a, cfg = self.args, self.cfg
         if i % a.log_interval == 0:
-            m = {k: float(v) for k, v in metrics.items()}
+            # sorted, as the reference's jitted step returns its metrics
+            m = {k: float(metrics[k]) for k in sorted(metrics)}
             collect_ms, optimize_ms = self.timer.split()
             sps = cfg.unroll_length * a.num_envs / ((collect_ms + optimize_ms) / 1e3)
             self.history.append(dict(update=i, metrics=m, collect_ms=collect_ms,

@@ -217,7 +217,8 @@ def rollout_tracking_fused(c: B.TLConstants, params, state: B.TLState, controls,
         return _launch(c, params, state, controls, ref, weights)
     if controls.device.type != "cpu":
         raise ValueError(f"unsupported device {controls.device}")
-    return rollout_tl.rollout_tracking(c, params, state, controls, ref, weights)[0]
+    return rollout_tl.rollout_tracking(c, params, state, controls, ref,
+                                       weights=weights)[0]
 
 
 rollout_tracking_fused.launches = 0

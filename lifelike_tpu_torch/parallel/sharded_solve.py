@@ -1,9 +1,10 @@
 """MPC solves with the MPPI population sharded over ranks.
 
 Port of lifelike_tpu.parallel.sharded_solve. Each rank rolls its shard of
-the population (K / W candidates) through the tracking rollout — K1
-(ops/rollout_cuda.rollout_tracking_fused) on CUDA tensors, its plain
-version on CPU tensors — and the only cross-rank traffic is the
+the population (K / W candidates) through the tracking rollout — on the
+plane K1 (ops/rollout_cuda.rollout_tracking_fused) on CUDA tensors, its
+plain version on CPU tensors; with a `terrain_fn` the eager tile rollout
+(mppi_tl.tracking_scorer) — and the only cross-rank traffic is the
 exponentiated-cost weighting: per MPPI iteration one MIN of the candidate
 costs and one SUM that packs the partial softmax denominator, the partial
 weighted control sum and the partial weighted cost. Every rank then holds
@@ -61,20 +62,23 @@ def weighted_update(mesh: Mesh, cfg: MPPIConfig, u_cand, cost):
 
 
 def sharded_mppi_step(mesh: Mesh, c: B.TLConstants, params, cfg: MPPIConfig, generator,
-                      state: B.TLState, u_nominal, ref: rollout_tl.RefTraj, eps=None):
+                      state: B.TLState, u_nominal, ref: rollout_tl.RefTraj, terrain_fn=None,
+                      eps=None):
     """One MPPI improvement with the population sharded over the ranks of
-    `mesh`, each rank's candidates scored by K1 against `ref`. state:
+    `mesh`, each rank's candidates scored against `ref` by
+    mppi_tl.tracking_scorer (K1 on the plane, the eager tile rollout on
+    `terrain_fn`). state:
     TLState with batch (1, 1); u_nominal (H, 4, 3), the same on every
     rank. eps: optional list of cfg.iterations raw normal tensors
     (H, 4, 3, Bs, L), this rank's.
     Returns (u_improved (H, 4, 3), {best_cost, weighted_cost}), identical on
     every rank."""
+    score = mppi_tl.tracking_scorer(c, params, state, ref, terrain_fn)
     u = u_nominal
     c_min = c_w = None
     for it in range(cfg.iterations):
         u_cand = _candidates(mesh, cfg, generator, u, it, eps)
-        cost = rollout_cuda.rollout_tracking_fused(c, params, state, u_cand, ref)
-        u, c_min, c_w = weighted_update(mesh, cfg, u_cand, cost)
+        u, c_min, c_w = weighted_update(mesh, cfg, u_cand, score(u_cand))
     return u, {"best_cost": c_min, "weighted_cost": c_w}
 
 
@@ -117,15 +121,17 @@ def sharded_hybrid_step(mesh: Mesh, model, c: B.TLConstants, params, clips, cfg:
                                      "seed_cost": seed_cost}
 
 
-def make_sharded_solver(mesh: Mesh, model, c: B.TLConstants, params, clips, cfg: MPPIConfig):
+def make_sharded_solver(mesh: Mesh, model, c: B.TLConstants, params, clips, cfg: MPPIConfig,
+                        terrain_fn=None):
     """The sharded receding-horizon solve: f(generator, tl_state, u_warm,
-    clip_idx, t0, eps=None) -> (u_opt, diag). The reference of the solve
-    is precomputed on every rank (rollout_tl.precompute_reference)."""
+    clip_idx, t0, eps=None) -> (u_opt, diag), on `terrain_fn` (the plane by
+    default). The reference of the solve is precomputed on every rank
+    (rollout_tl.precompute_reference)."""
     policy_dt = params.dt * params.substeps
 
     def solve(generator, tl_state, u_warm, clip_idx, t0, eps=None):
         ref = rollout_tl.precompute_reference(model, clips, clip_idx, t0, cfg.horizon, policy_dt)
         return sharded_mppi_step(mesh, c, params, cfg, generator, tl_state, u_warm, ref,
-                                 eps=eps)
+                                 terrain_fn, eps=eps)
 
     return solve

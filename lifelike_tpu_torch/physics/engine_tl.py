@@ -1,9 +1,10 @@
 """Tile-layout physics stepping.
 
 Port of lifelike_tpu.physics.engine_tl: the PD law, passive torques,
-compliant contact (ground plane, and with `scene=` the box SDF forces on
-feet, wheels and the trunk proxy) and semi-implicit Euler integration of
-physics.engine, with every field batch-trailing (see physics.batched).
+compliant contact (the ground plane or a heightmap `terrain_fn`, and with
+`scene=` the box SDF forces on feet, wheels and the trunk proxy) and
+semi-implicit Euler integration of physics.engine, with every field
+batch-trailing (see physics.batched).
 
 `control_step` here is the plain PyTorch version of the CUDA kernels'
 physics (csrc/scalar_phys.cuh): the kernels are held against it.
@@ -139,11 +140,14 @@ def freeze_mass(c: TLConstants, s: TLState) -> Frozen:
 
 
 def substep(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
-            frozen: Frozen = None, scene: TLScene = None):
-    """One 500 Hz step. `frozen`: optional freeze_mass output — the mass
-    factorization and leg terms are then not rebuilt from the current
-    configuration (PhysicsParams.mass_freeze fast path). `scene`: box
-    contact on feet, wheels and the trunk proxy, on top of the ground."""
+            terrain_fn=None, frozen: Frozen = None, scene: TLScene = None):
+    """One 500 Hz step. terrain_fn: p (4, 3, Bs, L) -> (heights (4, Bs, L),
+    normals (4, 3, Bs, L)) under the feet and wheels, the plane by default.
+    `frozen`: optional freeze_mass output — the mass factorization and leg
+    terms are then not rebuilt from the current configuration
+    (PhysicsParams.mass_freeze fast path). `scene`: box contact on feet,
+    wheels and the trunk proxy, on top of the ground."""
+    terrain_fn = terrain_fn or _plane_terrain
     kin = B.fk(c, s)
     if frozen is None:
         origin = s.base_pos
@@ -157,7 +161,7 @@ def substep(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
     tau_b = torch.zeros_like(torch.cat([s.base_ang_vel, s.base_lin_vel], dim=0))
 
     mu = params.foot_friction
-    h, n = _plane_terrain(kin.p_foot)
+    h, n = terrain_fn(kin.p_foot)
     f_foot = sphere_ground_force(
         kin.p_foot, kin.v_foot, c.foot_radius, h, n, params.contact, mu
     )
@@ -171,7 +175,7 @@ def substep(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
     tau_b = tau_b + tb
     tau_j = tau_j + tj
 
-    hw, nw = _plane_terrain(kin.p_wheel)
+    hw, nw = terrain_fn(kin.p_wheel)
     f_wheel = sphere_ground_force(
         kin.p_wheel, kin.v_wheel, c.wheel_radius, hw, nw, params.contact, mu
     )
@@ -239,7 +243,7 @@ def substep(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
 
 
 def control_step(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
-                 scene: TLScene = None):
+                 terrain_fn=None, scene: TLScene = None):
     """One 50 Hz control step: `substeps` physics substeps with a held target.
 
     With mass_freeze > 1 the mass matrix is refactored at substep
@@ -249,5 +253,5 @@ def control_step(c: TLConstants, params: PhysicsParams, s: TLState, target_q,
     for i in range(params.substeps):
         if freeze > 1 and i % freeze == 0:
             frozen = freeze_mass(c, s)
-        s = substep(c, params, s, target_q, frozen=frozen, scene=scene)
+        s = substep(c, params, s, target_q, terrain_fn, frozen=frozen, scene=scene)
     return s

@@ -3,8 +3,10 @@
 Port of lifelike_tpu.solver.mppi_tl: AR(1)-smoothed Gaussian exploration,
 exponentiated-cost (softmax) weighting and receding-horizon warm starts.
 `mppi_update` is the algorithm for any candidate scorer; `mppi_step` scores
-PMC tracking candidates with ops.rollout_cuda.rollout_tracking_fused, and
-the EPMC controllers (solver.mpc_tasks) score theirs with
+PMC tracking candidates with ops.rollout_cuda.rollout_tracking_fused on the
+plane (with a `terrain_fn`, with the eager tile rollout
+solver.rollout_tl.rollout_tracking, as the reference does), and the EPMC
+controllers (solver.mpc_tasks) score theirs with
 ops.traversal_cuda.rollout_traversal_fused — each the hand-written CUDA
 kernel whenever the tensors are on the card, its plain PyTorch version on
 the CPU.
@@ -92,20 +94,38 @@ def mppi_update(cfg: MPPIConfig, generator, u_nominal, score, eps=None, return_t
     return u, diag
 
 
-def mppi_step(c: B.TLConstants, params, cfg: MPPIConfig, generator, state: B.TLState,
-              u_nominal, ref: rollout_tl.RefTraj, eps=None, return_topk=0):
-    """mppi_update of a PMC tracking plan: the candidates start from `state`
-    (TLState with batch (1, 1)) and are scored by
-    rollout_cuda.rollout_tracking_fused against the reference `ref`."""
-    def score(u_cand):
-        return rollout_cuda.rollout_tracking_fused(c, params, state, u_cand, ref)
+def tracking_scorer(c: B.TLConstants, params, state: B.TLState, ref: rollout_tl.RefTraj,
+                    terrain_fn=None):
+    """score(u_cand (H, 4, 3, Bs, L)) -> total tracking cost (Bs, L) of
+    candidates rolled from `state` against `ref`. On the plane
+    (terrain_fn None) that is rollout_cuda.rollout_tracking_fused: K1 on
+    CUDA tensors. With a terrain it is the eager tile rollout
+    rollout_tl.rollout_tracking, on any device: K1 takes the plane only,
+    as the reference's fused kernel does. The choice follows the argument
+    alone."""
+    if terrain_fn is None:
+        def score(u_cand):
+            return rollout_cuda.rollout_tracking_fused(c, params, state, u_cand, ref)
+    else:
+        def score(u_cand):
+            return rollout_tl.rollout_tracking(c, params, state, u_cand, ref, terrain_fn)[0]
+    return score
 
+
+def mppi_step(c: B.TLConstants, params, cfg: MPPIConfig, generator, state: B.TLState,
+              u_nominal, ref: rollout_tl.RefTraj, terrain_fn=None, eps=None, return_topk=0):
+    """mppi_update of a PMC tracking plan: the candidates start from `state`
+    (TLState with batch (1, 1)) and are scored against the reference `ref`
+    by tracking_scorer (K1 on the plane, the eager tile rollout on
+    `terrain_fn`)."""
+    score = tracking_scorer(c, params, state, ref, terrain_fn)
     return mppi_update(cfg, generator, u_nominal, score, eps=eps, return_topk=return_topk)
 
 
 def make_mpc_controller(model, c: B.TLConstants, params, clips, cfg: MPPIConfig,
-                        device="cuda"):
-    """Receding-horizon controller over the tile-layout path (mppi_step).
+                        terrain_fn=None, device="cuda"):
+    """Receding-horizon controller over the tile-layout path (mppi_step;
+    `terrain_fn` as there).
 
     Returns f(generator, robot_state (unbatched RobotState), clip_idx, t,
     u_warm (H, 4, 3), eps=None) -> (u_exec (12,), u_warm', diag)."""
@@ -120,7 +140,8 @@ def make_mpc_controller(model, c: B.TLConstants, params, clips, cfg: MPPIConfig,
             model, clips, clip_idx, t, cfg.horizon, policy_dt
         )
         tl = B.tl_from_state(B.map_state(lambda x: x[None], robot_state))
-        u_opt, diag = mppi_step(c, params, cfg, generator, tl, u_warm, ref, eps=eps)
+        u_opt, diag = mppi_step(c, params, cfg, generator, tl, u_warm, ref, terrain_fn,
+                                eps=eps)
         u_exec = (ref.target_joint[0, ..., 0, 0] + u_opt[0]).reshape(12)
         u_next = torch.cat([u_opt[1:], u_opt[-1:]], dim=0)
         return u_exec, u_next, diag

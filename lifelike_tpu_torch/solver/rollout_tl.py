@@ -6,7 +6,9 @@ reference FK are precomputed once per solve into (H, ...) tensors
 (`precompute_reference`) and broadcast over the population.
 
 `rollout_tracking` is the plain version of the CUDA rollout kernel
-(ops.rollout_cuda.rollout_tracking_fused): same function, held against it.
+(ops.rollout_cuda.rollout_tracking_fused), held against it on the plane;
+with a `terrain_fn` it is the MPC's own route (solver.mppi_tl.mppi_step),
+as in the reference, whose fused kernel takes the plane only.
 """
 import math
 from typing import NamedTuple
@@ -130,15 +132,17 @@ def tracking_cost_step(s: B.TLState, foot_pos, ref_t: RefTraj, weights: Tracking
 
 
 def rollout_tracking(c: B.TLConstants, params, state: B.TLState, controls, ref: RefTraj,
-                     weights: TrackingWeights = TrackingWeights()):
+                     terrain_fn=None, weights: TrackingWeights = TrackingWeights()):
     """controls: (H, 4, 3, Bs, L) joint-target deltas on ref.target_joint.
+    terrain_fn: the tile-layout terrain of engine_tl.substep (the plane by
+    default).
 
     Returns (total_cost (Bs, L), final TLState)."""
     s = state
     total = None
     for t in range(controls.shape[0]):
         ref_t = ref_step(ref, t)
-        s = engine_tl.control_step(c, params, s, ref_t.target_joint + controls[t])
+        s = engine_tl.control_step(c, params, s, ref_t.target_joint + controls[t], terrain_fn)
         kin = B.fk(c, s)
         cost = tracking_cost_step(s, kin.p_foot, ref_t, weights)
         total = cost if total is None else total + cost

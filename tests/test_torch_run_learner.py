@@ -61,8 +61,9 @@ SEPMC_HANDOFF = ",".join(["params/llc", "params/prop_rms"] + [
     ["params/z_out=params/z_out"])
 
 
-def learn(task, *flags):
-    out = run_learner.main([f"--task={task}", *SMALL, *flags], log=lambda m: None)
+def learn(task, *flags, lines=None):
+    log = (lambda m: None) if lines is None else lines.append
+    out = run_learner.main([f"--task={task}", *SMALL, *flags], log=log)
     assert [u["update"] for u in out["updates"]] == [0, 1]
     for u in out["updates"]:
         assert all(math.isfinite(v) for v in u["metrics"].values()), u
@@ -126,10 +127,31 @@ def _check_single_update_steps():
     assert all(math.isfinite(float(v)) for v in m.values()) and {"games", "wins"} <= set(m)
 
 
+def _check_update_lines_parse(lines, tmp_path):
+    """The port's `update N:` lines list their metrics sorted, as the
+    reference's jitted step returns them, so both packages' pmc_curve
+    parsers read them."""
+    from lifelike_tpu_torch.tools import pmc_curve
+    from tests.test_torch_tools import reference_pmc_curve
+
+    log = tmp_path / "train.log"
+    log.write_text("\n".join(lines) + "\n")
+    rows = pmc_curve.parse_log(str(log))
+    assert [r[0] for r in rows] == [0, 1], lines
+    assert reference_pmc_curve().parse_log(str(log)) == rows
+    for ln in lines:
+        if ln.startswith("update "):
+            keys = ln.split("{", 1)[1].split("}", 1)[0].split(", ")
+            names = [k.split(":")[0] for k in keys]
+            assert names == sorted(names), ln
+
+
 def test_run_learner_cpu_stages(tmp_path):
     _check_single_update_steps()
-    for flags in ([f"--learner_config={{{UNROLL4}}}"], ["--pmc_replay", REPLAY]):
-        learn("pmc", *flags)
+    lines = []
+    learn("pmc", f"--learner_config={{{UNROLL4}}}", lines=lines)
+    _check_update_lines_parse(lines, tmp_path)
+    learn("pmc", "--pmc_replay", REPLAY)
     seeded = lambda cls: {k: p.detach().clone() for k, p in cls(
         generator=torch.Generator().manual_seed(0)).named_parameters()}
     epmc_pool = str(tmp_path / "pool_epmc")
