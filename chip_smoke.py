@@ -253,6 +253,18 @@ result line:
      learner log and phase 13's update lines parsed, random init and the
      pool checkpoint evaluated through bin/run_eval on the card, rc 0 and
      finite rewards;
+ 17. the measurement tools' twins (lifelike_tpu_torch/tools/; no kernel of
+     their own), each run in this process through its main() with every
+     K1-K4 count set to 0 first, its launches equal to the twin's
+     expected_launches and every time finite and > 0: sol_report at 4096 /
+     H 50 / substeps 10 (K1; its share of the FP32 peak <= 1, the
+     operations from utils/op_counts.py); probe_sweep at S 16 x 1024, H 50
+     (K3 at S 16 and S 1, K4 over the 16 blocks, a whole sweep round: the
+     round's time >= K3's + K4's); epmc_sweep at contact_k 16 and 8, 4096 /
+     H 50 and make_eval's 1,024 / H 12 (K2); scaling_bench at sizes 1 and 2
+     (depth cut from 1, 2, 4, 8; size 2 and its process rows are gloo ranks
+     time-slicing this card; rank 0's launches per row checked), the size-2
+     plan within 2e-4 of the size-1 fixed-work plan;
 then one JSON line listing the six kernels, the nvidia-smi line, and last
 the result line {"ok": true, "device": {...}}. Needs one card; builds the
 kernels from the sources in lifelike_tpu_torch/csrc/ with nvcc. Exits
@@ -270,6 +282,10 @@ runs phase 14 alone and ends with one JSON line of its rows.
   python3 chip_smoke.py --terrain
 
 builds K1, runs phase 16 alone and ends with one JSON line of its rows.
+
+  python3 chip_smoke.py --tools
+
+builds K1-K4, runs phase 17 alone and ends with one JSON line of its rows.
 
   python3 chip_smoke.py --multi
 
@@ -297,6 +313,7 @@ phase 10e's timed rows (both populations; a checkout without
 parallel/scenario_sweep.py has none). Ends with one JSON line of the
 times.
 """
+import functools
 import importlib.util
 import json
 import math
@@ -315,24 +332,8 @@ CHASE_SUBSTEPS = 20  # the chase plant (envs/chase_tag.py ChaseTagConfig)
 SWEEP_S = 16  # scenarios of bench.py's bench_sweep
 SWEEP_POPS = (256, 1024)  # bench_sweep's populations per robot per scenario (bench.py:606-623)
 SWEEP_ROUNDS = 10  # chained sweep rounds timed per population, after 2 warm-up rounds
-# Scalar operations per candidate (K3: per plan) per control step, printed
-# by tools/kernel_op_counts.py (the arithmetic primitives of one
-# lifelike_tpu.ops.scalar_phys.control_step traced at (1, 1) tiles, with
-# boxes of shape (K, 1, 1), plus the stage cost of ops/traversal_pallas.py).
-# Headline (substeps 10, mass_freeze 10): K1 the plane-contact step; K2 8
-# boxes (155,546) + the traversal stage cost (312); K3 the 4-wall arena
-# (105,146); K4 the same + the chase stage cost (235). At the chase plant
-# (substeps 20, mass_freeze 1): K3 297,160, K4 297,395.
-OPS_PER_LANE_STEP = {"K1": 52286, "K2": 155546 + 312, "K3": 105146, "K4": 105146 + 235}
-OPS_PER_LANE_STEP_CHASE_PLANT = {"K3": 297160, "K4": 297160 + 235}
-# K5: operations of one PGS sweep (one iteration) of one element, printed
-# by tools/kernel_op_counts.py (the arithmetic of
-# lifelike_tpu.physics.impulse._pgs, a length-18 dot as 35 operations).
-OPS_PER_SWEEP = {60: 4728, 129: 10248}
-# ... and the dependency depth of that sweep (tools/kernel_op_counts.py: its
-# rows' updates in order, a dot one level): the chain floor of K5 is depth x
-# iterations x CHAIN_CYCLES cycles
-SWEEP_DEPTH = {60: 540, 129: 1161}
+# The operation counts and dependency depths of K1-K6 behind every bound and
+# chain floor below: lifelike_tpu_torch/utils/op_counts.py (see op_counts()).
 IMPULSE_B, IMPULSE_SUBSTEPS = 256, 10  # bench.py bench_impulse's shape
 # phase 12: the policy networks and bin/run_eval
 POOL_MODEL = os.path.join(os.path.dirname(os.path.abspath(__file__)),  # runs/pmc_r5/pool's
@@ -385,25 +386,14 @@ TERRAIN_DEVICE = "cuda"  # phase 16's device (a CPU rehearsal sets "cpu")
 SYSID_POP, PMC_CURVE_STEPS = 48, 10
 TRAIN_LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "lifelike_tpu_torch/data/pmc_r5/train.log")
+# phase 17: the measurement tools' twins at their defaults (sol_report 4096 /
+# H 50 / substeps 10; probe_sweep S 16 x 1024, H 50; epmc_sweep contact_k 16
+# and 8 at 4096 / H 50 and make_eval's 1,024 / H 12), scaling_bench depth
+# cut to sizes 1 and 2 and 2 timed calls per row (the tool: 1, 2, 4, 8 and 3)
+TOOLS_ARGV = {"sol_report": [], "probe_sweep": [], "epmc_sweep": ["--ks=16,8"],
+              "scaling_bench": ["--sizes=1,2", "--reps=2"]}
+TOOLS_DEVICE = "cuda"  # phase 17's device (a CPU rehearsal sets "cpu")
 RICCATI_N, RICCATI_M, RICCATI_S = 37, 12, HYB_REFINE + 1
-# operations and float32 bytes of one Riccati step of one scenario, printed
-# by tools/kernel_op_counts.py (the Pallas kernel's _backward_step traced at
-# n 37, m 12: a length-K dot as K multiplies and K - 1 adds; the six input
-# blocks read once, the two gains written once)
-RICCATI_OPS_PER_STEP, RICCATI_BYTES_PER_STEP = 383995, 15324
-# ... and the dependency depth of one step (a dot one level, the 12
-# Gauss-Jordan rounds among it): K6's chain floor is depth x H x CHAIN_CYCLES
-RICCATI_DEPTH_PER_STEP = 75
-# Dependency depth of one control step, printed by tools/kernel_op_counts.py
-# (physics_depth: the longest chain of dependent arithmetic primitives of
-# the traced control_step, the box axis once), keyed by (kernel, substeps,
-# mass_freeze): K1 plane contact, K2 8 boxes, K3 / K4 the 4-wall arena. A
-# rollout of H strictly sequential control steps takes at least depth x H x
-# CHAIN_CYCLES cycles.
-CHAIN_DEPTH = {("K1", 10, 10): 1228, ("K1", 10, 1): 1390, ("K2", 10, 10): 1410,
-               ("K2", 10, 1): 1410, ("K3", 10, 10): 1410, ("K3", 20, 1): 2820,
-               ("K4", 10, 10): 1410, ("K4", 20, 1): 2820}
-CHAIN_CYCLES = 4  # latency of a dependent FP32 / FP64 operation on the H100
 KERNELS = {
     "K1": dict(name="rollout_tracking_fused (K1, eight lanes per candidate, K0 inlined)",
                source="lifelike_tpu_torch/csrc/rollout_tracking.cu",
@@ -451,13 +441,28 @@ def sm_clock_mhz():
     return float(out.stdout.strip().splitlines()[0])
 
 
+@functools.cache
+def op_counts():
+    """This checkout's lifelike_tpu_torch/utils/op_counts.py, the operation
+    counts and depths of K1-K6, loaded by path when first needed: this script
+    must start, and refuse, without the package beside it, and --timing
+    --root DIR imports an older checkout's package, which may have no such
+    table."""
+    spec = importlib.util.spec_from_file_location("op_counts", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "lifelike_tpu_torch", "utils", "op_counts.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def chain_floor(kernel, substeps, mass_freeze, kernel_ms, label=None):
     """Print and return the chain floor (ms) of one of K1-K4 at one setting."""
-    depth, mhz = CHAIN_DEPTH[(kernel, substeps, mass_freeze)], sm_clock_mhz()
-    floor_ms = depth * HORIZON * CHAIN_CYCLES / (mhz * 1e3)
+    oc = op_counts()
+    depth, mhz = oc.lane_step(kernel, substeps, mass_freeze).physics_depth, sm_clock_mhz()
+    floor_ms = oc.chain_floor_ms(depth, HORIZON, mhz)
     say(f"chain floor {label or kernel} substeps {substeps} mass_freeze {mass_freeze}: {depth} "
         f"levels x H "
-        f"{HORIZON} x {CHAIN_CYCLES} cycles / {mhz:g} MHz = {floor_ms:.4f} ms | kernel "
+        f"{HORIZON} x {oc.CHAIN_CYCLES} cycles / {mhz:g} MHz = {floor_ms:.4f} ms | kernel "
         f"{kernel_ms:.4f} ms, {kernel_ms / floor_ms:.2f}x the floor")
     return floor_ms
 
@@ -1306,8 +1311,9 @@ def time_pgs():
             raise SystemExit(f"K5 wrapper: a call on the plant's tensors ran {ran} per call")
         plain_ms = cuda_ms(lambda: pgs_cuda.pgs_sweep_plain(*system, p.mu, idx, iterations=it),
                            reps=1, warmup=1)
-        floor_ms = SWEEP_DEPTH[r] * it * CHAIN_CYCLES / (sm_clock_mhz() * 1e3)
-        ops = OPS_PER_SWEEP[r] * it * lanes
+        sweep = op_counts().PGS_SWEEPS[r]
+        floor_ms = op_counts().chain_floor_ms(sweep.depth, it, sm_clock_mhz())
+        ops = sweep.ops * it * lanes
         # each input read once, each output written once: v, lam0, J, MinvJT,
         # d, b, lo, hi, mu; mu_idx (int32); v and lam out
         nbytes = 4 * lanes * (2 * (18 + r) + 2 * r * 18 + 4 * r + 1) + 4 * r
@@ -1317,7 +1323,8 @@ def time_pgs():
             f"{plain_ms:.1f} ms | bound {bound_ms:.6f} ms ({ops:.4e} ops / 67 TFLOP/s = "
             f"{ops_ms:.6f} ms; {nbytes} B / 3.35 TB/s = {bytes_ms:.6f} ms, bound by {by}) | "
             f"kernel at {100 * bound_ms / kernel_ms:.4f}% of bound | chain floor "
-            f"{SWEEP_DEPTH[r]} levels x {it} iterations x {CHAIN_CYCLES} cycles = {floor_ms:.4f} ms, "
+            f"{sweep.depth} levels x {it} iterations x {op_counts().CHAIN_CYCLES} cycles = "
+            f"{floor_ms:.4f} ms, "
             f"kernel {kernel_ms / floor_ms:.2f}x | library: none")
         say(f"timing K5 wrapper call, {label}: 1 launch and 2 allocations (the outputs) per call; "
             f"device work per call {ran or 'not recorded by torch.profiler'} (no copy kernel)")
@@ -1505,16 +1512,17 @@ def time_riccati():
         wrapper_ms = cuda_ms(call, reps=20, warmup=3)
         kernel_ms, how, _ = device_ms(call, "riccati_sweep_kernel")
         plain_ms = cuda_ms(lambda: riccati_cuda.riccati_sweep_plain(*args, reg=1e-3), reps=1)
-        ops = RICCATI_OPS_PER_STEP * S * HORIZON
-        nbytes = RICCATI_BYTES_PER_STEP * S * HORIZON * (dtype.itemsize // 4)
+        step = op_counts().RICCATI_STEP
+        ops = step.ops * S * HORIZON
+        nbytes = step.bytes_f32 * S * HORIZON * (dtype.itemsize // 4)
         spec = peaks()
         peak = spec.peak_flops_f32 if dtype == torch.float32 else spec.peak_flops_f64
         ops_ms, bytes_ms = 1e3 * ops / peak, 1e3 * nbytes / spec.hbm_bytes_per_s
         bound_ms, by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
         name = str(dtype).replace("torch.", "")
-        floor_ms = RICCATI_DEPTH_PER_STEP * HORIZON * CHAIN_CYCLES / (sm_clock_mhz() * 1e3)
-        say(f"chain floor K6 {name} S {S}: {RICCATI_DEPTH_PER_STEP} levels x H {HORIZON} x "
-            f"{CHAIN_CYCLES} cycles = {floor_ms:.4f} ms | kernel {kernel_ms:.4f} ms, "
+        floor_ms = op_counts().chain_floor_ms(step.depth, HORIZON, sm_clock_mhz())
+        say(f"chain floor K6 {name} S {S}: {step.depth} levels x H {HORIZON} x "
+            f"{op_counts().CHAIN_CYCLES} cycles = {floor_ms:.4f} ms | kernel {kernel_ms:.4f} ms, "
             f"{kernel_ms / floor_ms:.2f}x the floor")
         say(f"timing K6 {name} S {S} H {HORIZON}: kernel {kernel_ms:.4f} ms ({how}) | "
             f"wrapper call {wrapper_ms:.4f} ms (CUDA events) | plain "
@@ -2575,7 +2583,7 @@ def multi_inputs(dev, pop, horizon, iterations=1):
     from lifelike_tpu_torch.physics import engine
     from lifelike_tpu_torch.robot.model import build_max_model
     from lifelike_tpu_torch.solver.mppi import MPPIConfig
-    from lifelike_tpu_torch.tools.multihost_worker import standing_tl
+    from lifelike_tpu_torch.tools.bench_common import standing_tl
 
     model = build_max_model()
     clips = motion_lib.pack_clips([motion_lib.make_synthetic_clip(int(120 * (horizon / 50 + 3)))],
@@ -3285,6 +3293,129 @@ def terrain_mode():
     return 0
 
 
+# phase 17: the measurement tools' twins (lifelike_tpu_torch/tools/) on the card
+def _tool(name, module, argv, fns):
+    """Run a twin's main(argv) in this process, its lines echoed under
+    `tools {name}:`, with every K1-K4 count set to 0 first. Returns (its
+    result, the K1-K4 launches, seconds); exits unless the launches are the
+    twin's expected_launches(argv)."""
+    def echo(text):
+        for line in str(text).split("\n"):
+            say(f"tools {name}: {line}")
+
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = module.main(argv, log=echo)
+    sec = time.perf_counter() - t0
+    got = {k: f.launches for k, f in fns.items()}
+    want = module.expected_launches(argv=argv)
+    say(f"tools {name}: kernel launches {got} (expected {want}), {sec:.1f} s")
+    if got != want:
+        raise SystemExit(f"tools {name}: kernel launches {got}, expected {want}")
+    return out, got, sec
+
+
+def _positive(label, values):
+    """Exit unless every value is finite and > 0."""
+    bad = {k: v for k, v in values.items()
+           if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0)}
+    if bad:
+        raise SystemExit(f"tools {label}: not finite and positive: {bad}")
+
+
+def run_tools(smi):
+    """Phase 17: sol_report, probe_sweep, epmc_sweep and scaling_bench on the
+    card (see the module's docstring). Returns their rows."""
+    import torch
+
+    from lifelike_tpu_torch.ops import rollout_cuda
+    from lifelike_tpu_torch.ops import traversal_cuda as tc
+    from lifelike_tpu_torch.tools import epmc_sweep, probe_sweep, scaling_bench, sol_report
+
+    fns = {"K1": rollout_cuda.rollout_tracking_fused, "K2": tc.rollout_traversal_fused,
+           "K3": tc.rollout_plan_fused, "K4": tc.rollout_chase_fused}
+    t17 = time.perf_counter()
+    rows = {"smi": smi}
+
+    argv = {k: v + [f"--device={TOOLS_DEVICE}"] for k, v in TOOLS_ARGV.items()}
+    sol, launches, sec = _tool("sol_report", sol_report, argv["sol_report"], fns)
+    _positive("sol_report", {k: sol[k] for k in (
+        "ms_per_solve", "msubsteps_per_s", "tflops", "fp32_peak_share", "bytes", "sol_ms")})
+    if not (math.isfinite(sol["flops_counted"]) and sol["flops_counted"] >= 0.0):
+        raise SystemExit(f"tools sol_report: flops_counted {sol['flops_counted']}")
+    if sol["fp32_peak_share"] > 1.0:
+        raise SystemExit(f"tools sol_report: {sol['fp32_peak_share']} of the FP32 peak (> 1)")
+    rows["sol_report"] = dict(sol, launches=launches, seconds=sec)
+
+    probe, launches, sec = _tool("probe_sweep", probe_sweep, argv["probe_sweep"], fns)
+    for name, r in probe.items():
+        _positive(f"probe_sweep {name}", {"min_ms": r["min_ms"], "med_ms": r["med_ms"]})
+        if not math.isfinite(r["out_mean"]):
+            raise SystemExit(f"tools probe_sweep {name}: out-mean {r['out_mean']}")
+    probe_args = probe_sweep.parse_args(argv["probe_sweep"])
+    a = probe[f"plan_fused S={probe_args.scenarios}"]["min_ms"]
+    b = next(r["min_ms"] for k, r in probe.items() if k.startswith("chase_fused"))
+    c = probe["full fused round"]["min_ms"]
+    say(f"tools probe_sweep: (c) a whole round {c:.3f} ms >= (a) K3 {a:.3f} + (b) K4 {b:.3f} = "
+        f"{a + b:.3f} ms (min of {probe_args.reps}) [{smi}]")
+    if not c >= a + b:
+        raise SystemExit(f"tools probe_sweep: the round's {c} ms is below K3 + K4's {a + b} ms")
+    rows["probe_sweep"] = dict(rows=probe, launches=launches, seconds=sec)
+
+    epmc, launches, sec = _tool("epmc_sweep", epmc_sweep, argv["epmc_sweep"], fns)
+    for r in epmc:
+        _positive(f"epmc_sweep {r['metric']}", {"value": r["value"], "k2_ms": r["k2_ms"]})
+    rows["epmc_sweep"] = dict(rows=epmc, launches=launches, seconds=sec)
+
+    # scaling_bench: size 2 and the process rows are ranks on this card,
+    # which time-slice it
+    scale, launches, sec = _tool("scaling_bench", scaling_bench, argv["scaling_bench"], fns)
+    reps = scaling_bench.parse_args(argv["scaling_bench"]).reps
+    for r in scale:
+        _positive(f"scaling_bench {r['metric']}", {k: r[k] for k in ("value", "vs_baseline")})
+        want = scaling_bench.row_launches(r["metric"], reps)
+        if "launches" in r and r["launches"] != want:
+            raise SystemExit(f"tools scaling_bench {r['metric']}: rank 0's launches "
+                             f"{r['launches']}, expected {want}")
+    plans = {r["metric"].split("_pop")[0]: r["plan"] for r in scale if "plan" in r}
+    err = report_diff("tools scaling_bench: the size-2 plan vs the size-1 fixed-work plan (one "
+                      "population, the same normals)", torch.tensor(plans["weak_scaling_n2"]),
+                      torch.tensor(plans["weak_scaling_fixedwork_n1"]), 2e-4)
+    rows["scaling_bench"] = dict(rows=[{k: v for k, v in r.items() if k != "plan"} for r in scale],
+                                 launches=launches, seconds=sec, plan_err=err)
+    rows["seconds"] = time.perf_counter() - t17
+    say(f"phase 17: {rows['seconds']:.1f} s [{smi}]")
+    return rows
+
+
+def tools_mode():
+    """The --tools mode: K1-K4 built, phase 17 alone, then one JSON line of
+    its rows."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs one NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from lifelike_tpu_torch.ops import cuda_build, rollout_cuda
+    from lifelike_tpu_torch.ops import traversal_cuda as tc
+
+    smi = nvidia_smi()
+    say(f"tools: {torch.cuda.get_device_name(0)} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | nvidia-smi: {smi}")
+    t0 = time.perf_counter()
+    kernels = (tc.KERNEL, tc.PLAN_KERNEL, tc.CHASE_KERNEL)
+    cuda_build.build_all([rollout_cuda.KERNEL, *kernels])
+    rollout_cuda.build()
+    for k in kernels:
+        tc.build(k)
+    say(f"build: K1, K2, K3, K4 in {time.perf_counter() - t0:.1f} s wall")
+    rows = run_tools(smi)
+    say(json.dumps(rows, default=str))
+    return 0
+
+
 def peaks():
     """The H100 SXM's published peaks (utils.profiling.H100_SXM: FP32 / FP64
     outside the tensor cores, HBM3 bytes/s, at its 700 W limit), the one
@@ -3310,7 +3441,7 @@ def time_kernel(key, kernel_fn, plain_fn, exact_fn, nbytes, lanes=POP, label=Non
     kernel_ms = cuda_ms(kernel_fn, reps=reps, warmup=3)
     plain_ms = cuda_ms(plain_fn, reps=1, warmup=1)
     exact_ms = cuda_ms(exact_fn, reps=reps, warmup=3)
-    ops = OPS_PER_LANE_STEP[key] * lanes * HORIZON
+    ops = op_counts().lane_step(key, SUBSTEPS, SUBSTEPS).ops * lanes * HORIZON
     bound_ms, by, ops_ms, bytes_ms = bound(ops, nbytes)
     label = label or f"pop {POP} H {HORIZON} substeps {SUBSTEPS} mass_freeze {SUBSTEPS}"
     say(f"timing {key} f32 {label}: "
@@ -3400,7 +3531,7 @@ def time_chase(model_n):
             4 * n * (HORIZON * 12 + 37 + K * 8 + HORIZON * 64 + HORIZON * 3) + 4 * model_n,
             lanes=n, label=f"S {n} H {HORIZON} substeps {SUBSTEPS} mass_freeze {SUBSTEPS} K {K}",
             exact_label=plant, reps=5)
-        b1 = bound(OPS_PER_LANE_STEP_CHASE_PLANT["K3"] * n * HORIZON, 1)[0]
+        b1 = bound(op_counts().lane_step("K3", CHASE_SUBSTEPS, 1).ops * n * HORIZON, 1)[0]
         say(f"bound K3 S={n} at the chase plant: {b1:.6f} ms (operations) | kernel at "
             f"{100 * b1 / exact_ms:.4f}% of it")
         chain_floor("K3", SUBSTEPS, SUBSTEPS, t["ms"], f"K3 S={n}")
@@ -3418,7 +3549,7 @@ def time_chase(model_n):
              + CHASE_POP), lanes=CHASE_POP,
         label=f"pop {CHASE_POP} H {HORIZON} substeps {SUBSTEPS} mass_freeze {SUBSTEPS} K {K}",
         exact_label=plant)
-    b1 = bound(OPS_PER_LANE_STEP_CHASE_PLANT["K4"] * CHASE_POP * HORIZON, 1)[0]
+    b1 = bound(op_counts().lane_step("K4", CHASE_SUBSTEPS, 1).ops * CHASE_POP * HORIZON, 1)[0]
     say(f"bound K4 at the chase plant: {b1:.6f} ms (operations) | kernel at "
         f"{100 * b1 / exact_ms:.4f}% of it")
     chain_floor("K4", SUBSTEPS, SUBSTEPS, t["ms"])
@@ -3631,6 +3762,9 @@ def main():
     # 16. heightmap terrain on the tile-layout path and the tool twins
     run_terrain(smi)
 
+    # 17. the measurement tools' twins, each with every kernel count set to 0 first
+    run_tools(smi)
+
     say(json.dumps({"kernels": [
         dict(name=KERNELS[k]["name"], route="cuda", source=KERNELS[k]["source"],
              replaces=KERNELS[k]["replaces"], launches=launches[k], max_abs_err=err[k],
@@ -3823,4 +3957,6 @@ if __name__ == "__main__":
         sys.exit(eval_mode())
     if sys.argv[1:2] == ["--terrain"]:
         sys.exit(terrain_mode())
+    if sys.argv[1:2] == ["--tools"]:
+        sys.exit(tools_mode())
     sys.exit(main())

@@ -32,21 +32,8 @@ from lifelike_tpu_torch.ops import rollout_cuda
 from lifelike_tpu_torch.parallel import distributed, sharded_solve
 from lifelike_tpu_torch.physics import batched as B
 from lifelike_tpu_torch.physics.engine import PhysicsParams
-from lifelike_tpu_torch.physics.dynamics import RobotState
 from lifelike_tpu_torch.solver.mppi import MPPIConfig
-
-STAND_Q = (-0.028, -0.779, 1.687) * 4
-
-
-def standing_tl(dtype, device):
-    """TLState (batch (1, 1)) of the robot standing at 0.33 m."""
-    z3 = torch.zeros(3, dtype=dtype, device=device)
-    rs = RobotState(base_pos=torch.tensor([0.0, 0.0, 0.33], dtype=dtype, device=device),
-                    base_orn=torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device),
-                    base_lin_vel=z3, base_ang_vel=z3.clone(),
-                    joint_pos=torch.tensor(STAND_Q, dtype=dtype, device=device),
-                    joint_vel=torch.zeros(12, dtype=dtype, device=device))
-    return B.tl_from_state(B.map_state(lambda x: x[None], rs))
+from lifelike_tpu_torch.tools.bench_common import standing_tl
 
 
 def _sync(dev):

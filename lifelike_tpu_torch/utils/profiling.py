@@ -13,7 +13,10 @@ Port of lifelike_tpu.utils.profiling:
   with a measured time, the fraction of it achieved.
 - `chained_latency(step, state)`: per-call latency as the slope over m_lo
   and m_hi chained data-dependent calls (CUDA events on the card, the host
-  clock on the CPU), which cancels the fixed cost of a timed region.
+  clock on the CPU), which cancels the fixed cost of a timed region;
+  `chained_calls` counts the calls it makes.
+- `card_label(device)`: the card's name and power limit as nvidia-smi
+  reports them, the label every measured number stands beside.
 
 The card table holds NVIDIA's published peaks (data sheet, SXM part, at its
 700 W power limit); a card set below that limit runs slower under load, so
@@ -21,6 +24,7 @@ a report names the card and its limit beside every share.
 """
 import contextlib
 import os
+import subprocess
 import time
 from typing import NamedTuple, Optional
 
@@ -138,7 +142,9 @@ def chained_latency(step, state, m_lo: int = 2, m_hi: int = 8, reps: int = 3):
     timings of m chained calls for m = m_lo and m_hi, and the slope
     (t_hi - t_lo) / (m_hi - m_lo). CUDA events where the state is on the
     card, the host clock otherwise. `step` must be data-dependent from call
-    to call (the state flows through)."""
+    to call (the state flows through). Where noise leaves the slope at or
+    below 0, it returns t_hi / m_hi, an upper bound (bench.py's last
+    resort), so a latency is always positive."""
     dev = _device_of(state)
     cuda = dev is not None and dev.type == "cuda"
 
@@ -168,7 +174,27 @@ def chained_latency(step, state, m_lo: int = 2, m_hi: int = 8, reps: int = 3):
         return best
 
     t_lo, t_hi = runner(m_lo), runner(m_hi)
-    return max(t_hi - t_lo, 0.0) / (m_hi - m_lo)
+    slope = (t_hi - t_lo) / (m_hi - m_lo)
+    return slope if slope > 0.0 else t_hi / m_hi
+
+
+def chained_calls(m_lo: int = 2, m_hi: int = 8, reps: int = 3) -> int:
+    """The calls of `step` that chained_latency makes: a warm chain and
+    `reps` timed chains at m_lo and at m_hi."""
+    return (1 + reps) * (m_lo + m_hi)
+
+
+def card_label(device) -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` of the
+    CUDA card `device` (its name and power limit), or "cpu" for the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+                         check=True)
+    return out.stdout.strip()
 
 
 def format_report(r: SolReport) -> str:

@@ -166,7 +166,8 @@ for m in ("envs.chase_tag", "scene.arena_gen", "scene.arena_fixed", "costs.chase
           "utils.profiling", "tools.make_eval", "tools.debug_traversal",
           "tools.distill_prior", "parallel.mesh", "parallel.distributed",
           "parallel.sharded_solve", "tools.launch_multihost", "tools.multihost_worker",
-          "tools.pmc_curve", "tools.sysid_contact"):
+          "tools.pmc_curve", "tools.sysid_contact", "utils.op_counts", "tools.bench_common",
+          "tools.sol_report", "tools.probe_sweep", "tools.epmc_sweep", "tools.scaling_bench"):
     assert "lifelike_tpu_torch." + m in names, m
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
